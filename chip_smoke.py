@@ -1,0 +1,332 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (smoothmesh_torch) on one CUDA card.
+
+Phases, each fatal on failure:
+  1. the card's name and power limit; build the CUDA kernels (K1-K4,
+     one nvcc per source, all at once) and print the build time;
+  2. the 128^3 graded, perturbed hex of bench.py (2,146,689 points);
+  3. each kernel against its plain PyTorch version on the card, on the
+     main path's inputs: the largest error scaled by the field's
+     magnitude (<= 1e-4) or the freeze-mask mismatches (<= 1e-4 * N),
+     the kernel's and the plain version's times, and the kernel's
+     bound (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s);
+  4. the slice: Smoother(...).steps(32) with face_angle_constraint off,
+     every launch count equal to the iterations, finite residuals,
+     0 <= nFrozen <= N and positive cell volumes at the end; then a
+     32^3 mesh for 8 iterations through the kernels and through the
+     plain versions on the card (residuals within 2e-3, frozen counts
+     within 10% + 10);
+  5. one JSON line of the kernels, then the last line
+     {"ok": true, "device": {"platform": "gpu", ...}}.
+
+Exits non-zero, printing no result, without a CUDA device or without
+the smoothmesh_torch package beside this file.
+
+Run from the repository root:  python3 chip_smoke.py
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, HBM3
+FP32_OPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
+FIELD_TOL = 1e-4              # max |kernel - plain| / max |plain|
+MASK_TOL = 1e-4               # freeze-mask mismatches / N
+MAIN_SIDE = 128
+MAIN_ITERS = 32
+SMALL_SIDE = 32
+SMALL_ITERS = 8
+
+
+def require(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def bench_mesh(side: int):
+    """bench.py's mesh: graded hex (2.0, 1.0, 0.5), perturbed by 0.25 x
+    the minimum spacing, seed 3."""
+    from smoothmesh_torch.mesh.blockmesh import hex_block, perturb
+
+    base = hex_block(n=(side, side, side), grading=(2.0, 1.0, 0.5),
+                     patches="default")
+    min_spacing = min(np.diff(np.unique(base.points[:, a])).min()
+                      for a in range(3))
+    return perturb(base, amplitude=0.25 * min_spacing, seed=3)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Median device time of one call: an event pair around each call,
+    so host time between calls is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def field_err(got, want):
+    """(max abs error, max abs error / max |want|) over tensors."""
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    mag = max(float(w.float().abs().max()) for w in want)
+    return err, err / max(mag, 1e-30)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, n_ops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    import smoothmesh_torch
+
+    require(os.path.dirname(os.path.dirname(
+        os.path.abspath(smoothmesh_torch.__file__))) == here,
+        "smoothmesh_torch is not the package beside this script")
+    from smoothmesh_torch import geometry as geo
+    from smoothmesh_torch import kernels
+    from smoothmesh_torch.driver import PLAIN_STAGES, Smoother, iteration_body
+    from smoothmesh_torch.ops import constraints as con
+    from smoothmesh_torch.ops import smoothing as smo
+    from smoothmesh_torch.params import SmoothingParams
+
+    # -- 1. device + build -------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t_build = kernels.build_all()
+    print(f"build: {t_build:.2f} s for {len(kernels.ALL)} kernels")
+    for k in kernels.ALL:
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {k.source}: {line.strip()}")
+
+    # -- 2. the main path's mesh --------------------------------------------
+    t0 = time.perf_counter()
+    mesh = bench_mesh(MAIN_SIDE)
+    t_mesh = time.perf_counter() - t0
+    params = SmoothingParams(centroidal_iters=MAIN_ITERS, rel_tol=0.0,
+                             face_angle_constraint=False)
+    t0 = time.perf_counter()
+    sm = Smoother(mesh, params, device="cuda")
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    topo, td, N = sm.topo, sm.td, sm.topo.n_points
+    print(f"mesh: {MAIN_SIDE}^3 hex, {N} points, {topo.n_cells} cells, "
+          f"{topo.n_faces} faces; generated in {t_mesh:.1f} s, "
+          f"Smoother set up (reorder, topology, upload) in {t_setup:.1f} s",
+          flush=True)
+
+    # -- 3. each kernel against its plain version ---------------------------
+    p = sm.params
+    max_step = p.max_step_length * sm._scale
+    min_edge = p.min_edge_length * sm._scale
+    pts = sm.points
+    fp, fm, fn = td["face_points"], td["face_mask"], td["face_npoints"]
+    own, cf, cfm = td["owner"], td["cell_faces"], td["cell_faces_mask"]
+    pc, pcm = td["point_cells"], td["point_cells_mask"]
+    pp, ppm = td["point_points"], td["point_points_mask"]
+    pfm, wpv, wnx = td["point_faces_mask"], td["wedge_prev"], td["wedge_next"]
+    intern = td["is_internal_point"]
+    none = torch.zeros(N, dtype=torch.bool, device=sm.device)
+
+    fg_p = geo.face_centres_areas_plain(pts, fp, fm, fn)
+    cc_p, vol_p = geo.cell_centres_vols_plain(fg_p, own, cf, cfm)
+    prop_p, curmin_p = smo.predictor_plain(pts, cc_p, td, max_step,
+                                           p.rel_step_frac, False)
+
+    def freeze(stage, edge, angle):
+        return stage(pts, prop_p, td, edge, p.total_min_freeze, angle,
+                     p.edge_angle_constraint, none)
+
+    frz_p = freeze(con.freeze_constraints_plain, min_edge, p.min_angle_rad)
+
+    def check_fields(name, got, want):
+        err, scaled = field_err(got, want)
+        require(math.isfinite(scaled) and scaled <= FIELD_TOL,
+                f"{name}: scaled error {scaled:.3g} > {FIELD_TOL}")
+        return err, {"scaled_err": scaled}, \
+            f"max abs err {err:.3g}, scaled {scaled:.3g}"
+
+    def check_k3(name, got, want):
+        err, scaled = field_err(got, want)
+        # the predictor is discontinuous where |step| == max_step and
+        # where two candidate neighbours tie in length: there a last-bit
+        # difference of a sum flips the branch, so K3 is held like a
+        # mask — at most 1e-4 * N points beyond the field tolerance
+        per_pt = torch.maximum((got[0] - want[0]).abs().amax(1),
+                               (got[1] - want[1]).abs())
+        per_pt = per_pt / float(want[0].abs().max())
+        beyond = int((per_pt > FIELD_TOL).sum())
+        for i in torch.topk(per_pt, min(5, N)).indices.tolist():
+            if per_pt[i] > FIELD_TOL:
+                ratio = [float((q[i] - pts[i]).norm()) / max_step
+                         for q in (got[0], want[0])]
+                print(f"  K3 point {i}: internal={bool(intern[i])}, "
+                      f"scaled err {float(per_pt[i]):.3g}; applied step "
+                      f"/ max_step: kernel {ratio[0]:.6f}, plain "
+                      f"{ratio[1]:.6f}")
+        require(math.isfinite(scaled) and beyond <= MASK_TOL * N,
+                f"{name}: {beyond} points beyond scaled error {FIELD_TOL}")
+        return err, {"scaled_err": scaled, "points_beyond_tol": beyond}, \
+            (f"max abs err {err:.3g}, scaled {scaled:.3g}; {beyond} of {N}"
+             " points beyond it")
+
+    def check_k4(name, got, want):
+        mism = int((got != want).sum())
+        # the main path's thresholds freeze few or no internal points of
+        # this mesh; tighter ones (3 x min edge, 60 degrees) freeze many
+        tight = (3.0 * min_edge, math.radians(60.0))
+        want_t = freeze(con.freeze_constraints_plain, *tight)
+        mism_t = int((freeze(con.freeze_constraints, *tight)
+                      != want_t).sum())
+        n_t = int(want_t.sum())
+        require(mism <= MASK_TOL * N and mism_t <= MASK_TOL * N,
+                f"{name}: {mism} / {mism_t} freeze-mask mismatches")
+        require(n_t > 0, f"{name}: tight thresholds froze no point")
+        return float(max(mism, mism_t) > 0), \
+            {"mismatches": mism, "tight_mismatches": mism_t,
+             "tight_frozen": n_t}, \
+            (f"{mism} mismatches of {N} ({int(want.sum())} frozen); "
+             f"tight thresholds: {mism_t} mismatches ({n_t} frozen)")
+
+    n_fv = int(fm.sum())                  # valid face-vertex slots
+    n_cf = int(cfm.sum())
+    n_pc, n_pp, n_pf = int(pcm.sum()), int(ppm.sum()), int(pfm.sum())
+    stages = (   # kernel call, plain call, check, plain result,
+        #          (bytes: inputs read once + outputs written once,
+        #           fp32 operations)
+        (lambda: geo.face_centres_areas(pts, fp, fm, fn),
+         lambda: geo.face_centres_areas_plain(pts, fp, fm, fn),
+         check_fields, fg_p,
+         (nbytes(pts, fp, fn) + 3 * nbytes(fg_p.centres), 40 * n_fv)),
+        (lambda: geo.cell_centres_vols(fg_p, own, cf, cfm),
+         lambda: geo.cell_centres_vols_plain(fg_p, own, cf, cfm),
+         check_fields, (cc_p, vol_p),
+         (nbytes(fg_p.centres, fg_p.areas, own, cf, cfm, cc_p, vol_p),
+          28 * n_cf)),
+        (lambda: smo.predictor(pts, cc_p, td, max_step, p.rel_step_frac,
+                               False),
+         lambda: smo.predictor_plain(pts, cc_p, td, max_step,
+                                     p.rel_step_frac, False),
+         check_k3, (prop_p, curmin_p),
+         (nbytes(pts, cc_p, pc, pcm, pp, ppm, intern, prop_p, curmin_p),
+          3 * n_pc + 12 * n_pp + 60 * N)),
+        (lambda: freeze(con.freeze_constraints, min_edge, p.min_angle_rad),
+         lambda: freeze(con.freeze_constraints_plain, min_edge,
+                        p.min_angle_rad),
+         check_k4, frz_p,
+         (nbytes(pts, prop_p, pp, ppm, pfm, wpv, wnx, none, frz_p),
+          18 * n_pp + 133 * n_pf)),
+    )
+    results = {}
+    for k, (run_k, run_p, check, want, work) in zip(kernels.ALL, stages):
+        got = run_k()
+        torch.cuda.synchronize()
+        err, extra, msg = check(k.name, got, want)
+        del got
+        ms = device_ms(run_k, 20)
+        plain_ms = device_ms(run_p, 5)
+        b_ms, b_by = bound(*work)
+        results[k] = dict(
+            name=k.name, route="cuda",
+            source=f"smoothmesh_torch/csrc/{k.source}",
+            replaces=k.replaces, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, bytes=work[0], ops=work[1], **extra)
+        print(f"{k.name}: {msg}; kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+              f" ms, bound {b_ms:.4f} ms ({b_by}) on {kind}", flush=True)
+    del fg_p, cc_p, vol_p, prop_p, curmin_p, frz_p
+
+    # -- 4. the slice through the user's entry point ------------------------
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    steps = sm.steps(MAIN_ITERS)
+    t_run = time.perf_counter() - t0
+    launches = {k: k.launches for k in kernels.ALL}
+    require(len(steps) == MAIN_ITERS, f"{len(steps)} iterations ran")
+    for k, n in launches.items():
+        require(n == MAIN_ITERS, f"{k.name} launched {n} times in "
+                f"{MAIN_ITERS} iterations")
+    for r in steps:
+        require(math.isfinite(r.residual), f"residual {r.residual}")
+        require(0 <= r.n_frozen <= N, f"nFrozenPoints {r.n_frozen}")
+    for r in (steps[0], steps[1], steps[-1]):
+        print(f"Smoothing iteration={r.iteration} "
+              f"nFrozenPoints={r.n_frozen} residual={r.residual:.6g}")
+    fg = geo.face_centres_areas(sm.points, fp, fm, fn)
+    _, vol = geo.cell_centres_vols(fg, own, cf, cfm)
+    vmin = float(vol.min())
+    require(vmin > 0, f"cell volume {vmin} at the end")
+    walls = [r.wall_ms for r in steps]
+    iter_ms = float(np.mean(walls))
+    print(f"slice: {MAIN_ITERS} iterations in {t_run:.2f} s; "
+          f"{iter_ms:.3f} ms/iteration (median {np.median(walls):.3f}, "
+          f"max {max(walls):.3f} at iteration "
+          f"{int(np.argmax(walls)) + 1} of {len(walls)}), "
+          f"{N / (iter_ms / 1e3):,.0f} point-updates/s on {smi}; "
+          f"min cell volume {vmin:.4g} (normalized units)", flush=True)
+
+    small = bench_mesh(SMALL_SIDE)
+    sp = SmoothingParams(centroidal_iters=SMALL_ITERS, rel_tol=0.0,
+                         face_angle_constraint=False)
+    sk = Smoother(small, sp, device="cuda")
+    pts_p = sk.points.clone()
+    rk = sk.steps(SMALL_ITERS)
+    for i, r in enumerate(rk):
+        pts_p, res_p, nf_p = iteration_body(pts_p, sk.td, sk.params,
+                                            sk._scale, PLAIN_STAGES)
+        res_p, nf_p = float(res_p), int(nf_p)
+        require(abs(r.residual - res_p) < 2e-3,
+                f"{SMALL_SIDE}^3 iteration {i + 1}: residual {r.residual} "
+                f"(kernels) vs {res_p} (plain)")
+        require(abs(r.n_frozen - nf_p) <= 0.1 * nf_p + 10,
+                f"{SMALL_SIDE}^3 iteration {i + 1}: nFrozen {r.n_frozen} "
+                f"(kernels) vs {nf_p} (plain)")
+    print(f"{SMALL_SIDE}^3 x {SMALL_ITERS}: kernels and plain versions "
+          f"agree (last residual {rk[-1].residual:.6g} vs {res_p:.6g}, "
+          f"nFrozen {rk[-1].n_frozen} vs {nf_p})")
+
+    # -- 5. the record ----------------------------------------------------
+    for k in results:
+        results[k]["launches"] = launches[k]
+    print(json.dumps({"kernels": list(results.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

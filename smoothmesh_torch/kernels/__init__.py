@@ -1,0 +1,184 @@
+"""Build, load and launch the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into
+its own shared library with a plain C interface, at first use, into
+``smoothmesh_torch/build/`` (named by a hash of the sources and flags,
+so an edited source is rebuilt), and loaded with ``ctypes``.  Nothing is
+compiled or loaded at import time: the CPU tests import every module on
+machines with no ``nvcc`` and no card.
+
+Each C entry point launches on the stream it is given (PyTorch's
+current stream), allocates nothing, and returns ``cudaGetLastError()``;
+:meth:`Kernel.launch` raises if that is not 0 and otherwise adds one to
+the kernel's launch count.
+
+Arithmetic: ``--fmad=false`` keeps ``a*b+c`` as two rounded operations,
+as the plain PyTorch versions compute it, so the kernels agree with
+them to the last bits except for summation order.  All four kernels are
+bound by memory traffic, not by floating-point issue rate, so the
+contraction would buy nothing measurable.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Sequence
+
+import torch
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+class Kernel:
+    """One CUDA source, its C entry point and its launch count."""
+
+    def __init__(self, name: str, source: str, entry: str,
+                 argtypes: Sequence, replaces: str):
+        self.name = name
+        self.source = source          # file name under csrc/
+        self.entry = entry
+        self.argtypes = list(argtypes) + [P]   # + the stream
+        self.replaces = replaces      # the TPU kernel it ports
+        self.launches = 0
+        self.build_log = ""
+        self._fn = None
+
+    @property
+    def source_path(self) -> Path:
+        return CSRC / self.source
+
+    def library_path(self) -> Path:
+        h = hashlib.sha1()
+        for path in sorted(CSRC.glob("*.cuh")) + [self.source_path]:
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        stem = Path(self.source).stem
+        return BUILD / f"lib{stem}-{h.hexdigest()[:12]}.so"
+
+    def _start_build(self):
+        """Start nvcc unless the library exists -> (process, tmp path)."""
+        lib = self.library_path()
+        if lib.exists():
+            return None
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(self.source_path)]
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True), tmp
+
+    def _finish_build(self, started) -> None:
+        if started is None:
+            return
+        proc, tmp = started
+        self.build_log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {self.source}:\n{self.build_log}")
+        os.replace(tmp, self.library_path())
+
+    def load(self):
+        if self._fn is None:
+            self._finish_build(self._start_build())
+            lib = ctypes.CDLL(str(self.library_path()))
+            fn = getattr(lib, self.entry)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, *args) -> None:
+        """Launch on PyTorch's current stream; raise on a CUDA error."""
+        fn = self.load()
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name}: CUDA error {err} at launch")
+        self.launches += 1
+
+
+def build_all() -> float:
+    """Compile every kernel not yet built, one ``nvcc`` per source, all
+    started together; load them.  Returns the seconds it took."""
+    t0 = time.perf_counter()
+    started = [k._start_build() for k in ALL]
+    try:
+        for k, st in zip(ALL, started):
+            k._finish_build(st)
+    finally:
+        for st in started:
+            if st is not None and st[0].poll() is None:
+                st[0].kill()
+                st[0].wait()
+    for k in ALL:
+        k.load()
+    return time.perf_counter() - t0
+
+
+def reset_launches() -> None:
+    for k in ALL:
+        k.launches = 0
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+          device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
+    on ``device`` (what a kernel takes)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+FACE_GEOMETRY = Kernel(
+    "K1 face_geometry", "face_geometry.cu", "smk_face_geometry",
+    [P, P, P, I, I, P, P, P],
+    "smoothmesh_tpu/ops/tiledstep.py:323")
+CELL_CENTRES = Kernel(
+    "K2 cell_centres_vols", "cell_centres.cu", "smk_cell_centres_vols",
+    [P, P, P, P, P, I, I, P, P],
+    "smoothmesh_tpu/ops/tiledstep.py:391")
+PREDICTOR = Kernel(
+    "K3 predictor", "predictor.cu", "smk_predictor",
+    [P, P, P, P, P, P, P, I, I, I, F, F, I, P, P],
+    "smoothmesh_tpu/ops/tiledstep.py:435")
+FREEZE = Kernel(
+    "K4 freeze_constraints", "freeze.cu", "smk_freeze_constraints",
+    [P, P, P, P, P, P, P, P, I, I, I, F, I, F, I, P],
+    "smoothmesh_tpu/ops/tiledstep.py:724")
+
+ALL = (FACE_GEOMETRY, CELL_CENTRES, PREDICTOR, FREEZE)
