@@ -2,20 +2,27 @@
 """Smoke run of the PyTorch port (smoothmesh_torch) on one CUDA card.
 
 Phases, each fatal on failure:
-  1. the card's name and power limit; build the CUDA kernels (K1-K4,
+  1. the card's name and power limit; build the CUDA kernels (K1-K6,
      one nvcc per source, all at once) and print the build time;
-  2. the 128^3 graded, perturbed hex of bench.py (2,146,689 points);
+  2. the 128^3 graded, perturbed hex of bench.py (2,146,689 points) and
+     a Smoother with the default parameters (face angle on);
   3. each kernel against its plain PyTorch version on the card, on the
      main path's inputs: the largest error scaled by the field's
      magnitude (<= 1e-4) or the freeze-mask mismatches (<= 1e-4 * N),
      the kernel's and the plain version's times, and the kernel's
      bound (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s);
-  4. the slice: Smoother(...).steps(32) with face_angle_constraint off,
-     every launch count equal to the iterations, finite residuals,
+     then the face-angle fixed point at 128^3 under a band that bites
+     (60/120 degrees), once with the current angles from K5/K6 and once
+     from their plain versions: more than 0 points frozen, at most
+     1e-4 * N masks differing; its frozen count, sweeps and time;
+  4. the main path: Smoother(...).steps(32) with the defaults, every
+     one of K1-K6 launched once per iteration, finite residuals,
      0 <= nFrozen <= N and positive cell volumes at the end; then a
      32^3 mesh for 8 iterations through the kernels and through the
-     plain versions on the card (residuals within 2e-3, frozen counts
-     within 10% + 10);
+     plain versions on the card, with the face angle off, at the
+     default band, at 60/120 and at 80/100, which freezes internal
+     points there (residuals within 2e-3, frozen counts within
+     10% + 10);
   5. one JSON line of the kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -45,6 +52,12 @@ MAIN_SIDE = 128
 MAIN_ITERS = 32
 SMALL_SIDE = 32
 SMALL_ITERS = 8
+TIGHT_BAND = (60.0, 120.0)    # degrees: bites on the 128^3 bench mesh
+TIGHTER_BAND = (80.0, 100.0)  # degrees: bites on the 32^3 one too
+#: the device tables that the face angle adds (K5, K6, the fixed point)
+FACE_ANGLE_KEYS = ("edges", "edge_faces", "edge_cells", "edge_cells_mask",
+                   "edge_cell_f0", "edge_cell_f1", "point_edges",
+                   "point_edges_mask", "pps_signed", "pe_flat")
 
 
 def require(cond, msg: str) -> None:
@@ -136,8 +149,7 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh = bench_mesh(MAIN_SIDE)
     t_mesh = time.perf_counter() - t0
-    params = SmoothingParams(centroidal_iters=MAIN_ITERS, rel_tol=0.0,
-                             face_angle_constraint=False)
+    params = SmoothingParams(centroidal_iters=MAIN_ITERS, rel_tol=0.0)
     t0 = time.perf_counter()
     sm = Smoother(mesh, params, device="cuda")
     torch.cuda.synchronize()
@@ -147,6 +159,10 @@ def main() -> int:
           f"{topo.n_faces} faces; generated in {t_mesh:.1f} s, "
           f"Smoother set up (reorder, topology, upload) in {t_setup:.1f} s",
           flush=True)
+    fa_bytes = nbytes(*(td[k] for k in FACE_ANGLE_KEYS))
+    print(f"device topology: {nbytes(*td.values()) / 1e9:.3f} GB, of "
+          f"which the face angle's tables {fa_bytes / 1e9:.3f} GB "
+          f"({topo.n_edges} edges)", flush=True)
 
     # -- 3. each kernel against its plain version ---------------------------
     p = sm.params
@@ -171,6 +187,8 @@ def main() -> int:
                      p.edge_angle_constraint, none)
 
     frz_p = freeze(con.freeze_constraints_plain, min_edge, p.min_angle_rad)
+    ue_p = con.edge_face_angles_plain(pts, fg_p.means, cc_p, td)
+    up_p = con.point_face_angles_plain(ue_p, td)
 
     def check_fields(name, got, want):
         err, scaled = field_err(got, want)
@@ -224,6 +242,11 @@ def main() -> int:
     n_fv = int(fm.sum())                  # valid face-vertex slots
     n_cf = int(cfm.sum())
     n_pc, n_pp, n_pf = int(pcm.sum()), int(ppm.sum()), int(pfm.sum())
+    edges, ef, ec = td["edges"], td["edge_faces"], td["edge_cells"]
+    ef0, ef1, ecm = (td["edge_cell_f0"], td["edge_cell_f1"],
+                     td["edge_cells_mask"])
+    pe, pem = td["point_edges"], td["point_edges_mask"]
+    n_ec, n_pe = int(ecm.sum()), int(pem.sum())
     stages = (   # kernel call, plain call, check, plain result,
         #          (bytes: inputs read once + outputs written once,
         #           fp32 operations)
@@ -249,6 +272,17 @@ def main() -> int:
          check_k4, frz_p,
          (nbytes(pts, prop_p, pp, ppm, pfm, wpv, wnx, none, frz_p),
           18 * n_pp + 133 * n_pf)),
+        (lambda: (con.edge_face_angles(pts, fg_p.means, cc_p, td),),
+         lambda: con.edge_face_angles_plain(pts, fg_p.means, cc_p, td),
+         check_fields, (ue_p,),
+         # ~19 operations per edge (its frame), ~100 per valid
+         # (edge, cell) slot (three projections and the u metric)
+         (nbytes(pts, fg_p.means, cc_p, edges, ef, ec, ef0, ef1, ecm, ue_p),
+          19 * topo.n_edges + 100 * n_ec)),
+        (lambda: (con.point_face_angles(ue_p, td),),
+         lambda: con.point_face_angles_plain(ue_p, td),
+         check_fields, (up_p,),
+         (nbytes(ue_p, pe, pem, up_p), 2 * n_pe)),
     )
     results = {}
     for k, (run_k, run_p, check, want, work) in zip(kernels.ALL, stages):
@@ -267,9 +301,47 @@ def main() -> int:
             library_ms=None, bytes=work[0], ops=work[1], **extra)
         print(f"{k.name}: {msg}; kernel {ms:.4f} ms, plain {plain_ms:.4f}"
               f" ms, bound {b_ms:.4f} ms ({b_by}) on {kind}", flush=True)
-    del fg_p, cc_p, vol_p, prop_p, curmin_p, frz_p
 
-    # -- 4. the slice through the user's entry point ------------------------
+    # the face-angle fixed point (plain PyTorch, as in the JAX package)
+    # under a band that bites, with the current angles from K5/K6 (the
+    # main path) and from their plain versions
+    u_lo, u_hi = (con.angle_to_u(math.radians(a)) for a in (35.0, 160.0))
+    cur_k = con.face_angles_per_point(pts, fg_p.means, cc_p, td)
+    n_act = int(((cur_k[0] <= u_lo) | (cur_k[1] >= u_hi)).sum())
+    print(f"face angle at the default band (35/160): {n_act} of {N} "
+          f"points active", flush=True)
+    band = tuple(math.radians(a) for a in TIGHT_BAND)
+
+    def fixed_point(cur, stats):
+        return con.restrict_face_angle_deterioration(
+            pts, cc_p, prop_p, td, *band, frz_p, fc_base=fg_p.means,
+            cur_minmax=cur, u_space=True, stats=stats)
+
+    cur_p = con.face_angles_per_point_plain(pts, fg_p.means, cc_p, td)
+    stats_p, stats_k = {}, {}
+    fa_p = fixed_point(cur_p, stats_p)
+    fixed_point(cur_k, stats_k)             # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fa_k = fixed_point(cur_k, stats_k)
+    torch.cuda.synchronize()
+    fa_ms = (time.perf_counter() - t0) * 1e3
+    fa_new = int((fa_k & ~frz_p).sum())
+    fa_mism = int((fa_k != fa_p).sum())
+    require(fa_new > 0, f"the {TIGHT_BAND} band froze no point")
+    require(fa_mism <= MASK_TOL * N,
+            f"fixed point: {fa_mism} masks differ between the current "
+            "angles of K5/K6 and of their plain versions")
+    print(f"face-angle fixed point at {MAIN_SIDE}^3, band {TIGHT_BAND}: "
+          f"{stats_k['active']} points active, {fa_new} frozen beyond "
+          f"the {int(frz_p.sum())} of K4 ({int(fa_p.sum())} in all from "
+          f"the plain current angles), {stats_k['sweeps']} pair sweeps, "
+          f"{fa_mism} masks differ; {fa_ms:.2f} ms (host clock, "
+          f"synchronized) on {smi}", flush=True)
+    del fg_p, cc_p, vol_p, prop_p, curmin_p, frz_p, ue_p, up_p, cur_k, cur_p
+
+    # -- 4. the main path through the user's entry point ---------------------
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     steps = sm.steps(MAIN_ITERS)
@@ -291,32 +363,43 @@ def main() -> int:
     require(vmin > 0, f"cell volume {vmin} at the end")
     walls = [r.wall_ms for r in steps]
     iter_ms = float(np.mean(walls))
-    print(f"slice: {MAIN_ITERS} iterations in {t_run:.2f} s; "
-          f"{iter_ms:.3f} ms/iteration (median {np.median(walls):.3f}, "
-          f"max {max(walls):.3f} at iteration "
+    print(f"main path (defaults, face angle on): {MAIN_ITERS} iterations "
+          f"in {t_run:.2f} s; {iter_ms:.3f} ms/iteration (median "
+          f"{np.median(walls):.3f}, max {max(walls):.3f} at iteration "
           f"{int(np.argmax(walls)) + 1} of {len(walls)}), "
           f"{N / (iter_ms / 1e3):,.0f} point-updates/s on {smi}; "
-          f"min cell volume {vmin:.4g} (normalized units)", flush=True)
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB; min cell volume {vmin:.4g} (normalized units)", flush=True)
+    del sm, td, pts, fg, vol
 
     small = bench_mesh(SMALL_SIDE)
-    sp = SmoothingParams(centroidal_iters=SMALL_ITERS, rel_tol=0.0,
-                         face_angle_constraint=False)
-    sk = Smoother(small, sp, device="cuda")
-    pts_p = sk.points.clone()
-    rk = sk.steps(SMALL_ITERS)
-    for i, r in enumerate(rk):
-        pts_p, res_p, nf_p = iteration_body(pts_p, sk.td, sk.params,
-                                            sk._scale, PLAIN_STAGES)
-        res_p, nf_p = float(res_p), int(nf_p)
-        require(abs(r.residual - res_p) < 2e-3,
-                f"{SMALL_SIDE}^3 iteration {i + 1}: residual {r.residual} "
-                f"(kernels) vs {res_p} (plain)")
-        require(abs(r.n_frozen - nf_p) <= 0.1 * nf_p + 10,
-                f"{SMALL_SIDE}^3 iteration {i + 1}: nFrozen {r.n_frozen} "
-                f"(kernels) vs {nf_p} (plain)")
-    print(f"{SMALL_SIDE}^3 x {SMALL_ITERS}: kernels and plain versions "
-          f"agree (last residual {rk[-1].residual:.6g} vs {res_p:.6g}, "
-          f"nFrozen {rk[-1].n_frozen} vs {nf_p})")
+    configs = [("face angle off", dict(face_angle_constraint=False)),
+               ("default band", {})]
+    configs += [(f"band {lo, hi}", dict(min_angle=lo, max_angle=hi))
+                for lo, hi in (TIGHT_BAND, TIGHTER_BAND)]
+    for label, kw in configs:
+        sk = Smoother(small, SmoothingParams(
+            centroidal_iters=SMALL_ITERS, rel_tol=0.0, **kw), device="cuda")
+        n_bnd = int((~sk.td["is_internal_point"]).sum())
+        pts_p = sk.points.clone()
+        rk = sk.steps(SMALL_ITERS)
+        for i, r in enumerate(rk):
+            pts_p, res_p, nf_p = iteration_body(pts_p, sk.td, sk.params,
+                                                sk._scale, PLAIN_STAGES)
+            res_p, nf_p = float(res_p), int(nf_p)
+            where = f"{SMALL_SIDE}^3 {label}, iteration {i + 1}"
+            require(abs(r.residual - res_p) < 2e-3,
+                    f"{where}: residual {r.residual} (kernels) vs {res_p} "
+                    "(plain)")
+            require(abs(r.n_frozen - nf_p) <= 0.1 * nf_p + 10,
+                    f"{where}: nFrozen {r.n_frozen} (kernels) vs {nf_p} "
+                    "(plain)")
+        print(f"{SMALL_SIDE}^3 x {SMALL_ITERS}, {label}: kernels and plain "
+              f"versions agree (last residual {rk[-1].residual:.6g} vs "
+              f"{res_p:.6g}, nFrozen {rk[-1].n_frozen} vs {nf_p}, of "
+              f"which {n_bnd} boundary points)", flush=True)
+    require(rk[-1].n_frozen > n_bnd,
+            f"{SMALL_SIDE}^3, band {TIGHTER_BAND}: no internal point froze")
 
     # -- 5. the record ----------------------------------------------------
     for k in results:

@@ -28,6 +28,25 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _fa_packed(topo: MeshTopology) -> Dict[str, np.ndarray]:
+    """The face-angle fixed point's packed tables (numpy), as the JAX
+    package's ``device._fa_packed`` builds them:
+
+    - ``pps_signed``: point_points with invalid slots as -1;
+    - ``pe_flat``: point_edges_side * E + point_edges with invalid
+      slots as -1 (E = the edges array's row count).
+    """
+    e_rows = topo.edges.shape[0]
+    if 2 * e_rows >= 2**31:  # flat (side, edge) ids must fit int32
+        raise ValueError("mesh too large for int32 flat edge ids")
+    pps = np.where(topo.point_points_mask, topo.point_points, -1)
+    pef = np.where(topo.point_edges_mask,
+                   topo.point_edges_side.astype(np.int64) * e_rows
+                   + topo.point_edges, -1)
+    return {"pps_signed": pps.astype(np.int32),
+            "pe_flat": pef.astype(np.int32)}
+
+
 def to_device(topo: MeshTopology, device=None,
               keys: Optional[Iterable[str]] = None) -> Dict[str, torch.Tensor]:
     """Stage topology arrays (int32 indices, bool masks) on ``device``.
@@ -83,6 +102,8 @@ def to_device(topo: MeshTopology, device=None,
         "edge_valid": np.ones(topo.n_edges, dtype=bool),
         "cell_valid": np.ones(topo.n_cells, dtype=bool),
     }
+    if keys is None or keys & {"pps_signed", "pe_flat"}:
+        host.update(_fa_packed(topo))
     if keys is not None:
         host = {k: v for k, v in host.items() if k in keys}
     out = {}

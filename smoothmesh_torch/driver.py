@@ -6,7 +6,8 @@ boundary smoothing:
 
   face geometry (K1) -> cell centres (K2) -> predictor (K3: centroidal,
   aspect-ratio blend, step limiter) -> edge-shortening / edge-angle
-  freezes (K4) -> revert frozen and boundary points -> residual
+  freezes (K4) -> current face angles per point (K5, K6) -> the
+  face-angle fixed point -> revert frozen and boundary points -> residual
 
 Coordinates are internally normalized (centred, scaled so the minimum
 edge length is 1) so float32 stays accurate at any absolute mesh scale;
@@ -14,9 +15,16 @@ length-valued parameters are scaled along.  Each iteration reads back
 two scalars (the residual and the frozen count), exactly the
 information the reference prints.
 
-This slice runs with ``face_angle_constraint=False``; the face-angle
-constraint, boundary-layer blending and boundary smoothing raise
-``NotImplementedError`` naming the slice of the port that brings them.
+The face-angle step is the JAX driver's tile-engine branch
+(``smoothmesh_tpu/driver.py:321-327``) on every device: the fixed point
+in u space, with the current angles from K5/K6 (their plain versions on
+the CPU) and its 1e-5 u guard against last-bit noise.  Not its XLA
+branch (``:246-249``, angle space, no guard): that one compares the
+current and the substituted angles from two arithmetic paths, so where
+a substitution leaves an edge unchanged its decision follows last-bit
+noise (see tests/test_torch_driver.py).  Boundary-layer blending and
+boundary smoothing raise ``NotImplementedError`` naming the slice of
+the port that brings them.
 """
 
 from __future__ import annotations
@@ -47,29 +55,37 @@ class StepResult:
 
 
 class Stages(NamedTuple):
-    """The four per-iteration stages."""
+    """The per-iteration stages that hold a kernel."""
 
     face_geometry: Callable
     cell_centres_vols: Callable
     predictor: Callable
     freeze_constraints: Callable
+    face_angles_per_point: Callable
 
 
 #: The wrappers: plain versions on CPU tensors, kernels on CUDA tensors.
 KERNEL_STAGES = Stages(geo.face_centres_areas, geo.cell_centres_vols,
-                       smoothing.predictor, constraints.freeze_constraints)
+                       smoothing.predictor, constraints.freeze_constraints,
+                       constraints.face_angles_per_point)
 #: The plain PyTorch versions on any device (the card's reference run).
 PLAIN_STAGES = Stages(geo.face_centres_areas_plain,
                       geo.cell_centres_vols_plain,
                       smoothing.predictor_plain,
-                      constraints.freeze_constraints_plain)
+                      constraints.freeze_constraints_plain,
+                      constraints.face_angles_per_point_plain)
 
-#: The device-topology tables one iteration reads.
+#: The device-topology tables one iteration reads (the face-angle
+#: fixed point reads point_edges_side folded into pe_flat).
 TD_KEYS = frozenset({
     "face_points", "face_mask", "face_npoints", "owner", "cell_faces",
     "cell_faces_mask", "point_cells", "point_cells_mask", "point_points",
     "point_points_mask", "point_faces_mask", "wedge_prev", "wedge_next",
     "is_internal_point", "point_valid",
+    # the face angle
+    "edges", "edge_faces", "edge_cells", "edge_cells_mask", "edge_cell_f0",
+    "edge_cell_f1", "point_edges", "point_edges_mask", "pps_signed",
+    "pe_flat",
 })
 
 
@@ -95,6 +111,12 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
         points, prop, td, min_edge, p.total_min_freeze, p.min_angle_rad,
         p.edge_angle_constraint,
         torch.zeros(points.shape[0], dtype=torch.bool, device=points.device))
+    if p.face_angle_constraint:
+        # as the JAX driver's tile branch (smoothmesh_tpu/driver.py:321-327)
+        cur = stages.face_angles_per_point(points, fg.means, cell_ctrs, td)
+        frozen = constraints.restrict_face_angle_deterioration(
+            points, cell_ctrs, prop, td, p.min_angle_rad, p.max_angle_rad,
+            frozen, fc_base=fg.means, cur_minmax=cur, u_space=True)
 
     # boundary points stay put: no boundary smoothing in this slice
     revert = frozen | ~td["is_internal_point"]
@@ -104,17 +126,9 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
     return new_points, res, n_frozen
 
 
-def check_supported(params: SmoothingParams,
-                    topo: Optional[MeshTopology] = None) -> None:
-    """Raise NotImplementedError for what this slice cannot run yet
-    (the layer-patch check needs the topology's patch names)."""
-    if params.face_angle_constraint:
-        raise NotImplementedError(
-            "the face-angle constraint arrives with slice 2 of the "
-            "PyTorch port; pass face_angle_constraint=False "
-            "(-faceAngleConstraint false)")
-    if (topo is not None
-            and len(topo.patch_ids_matching(params.layer_patches))
+def check_supported(params: SmoothingParams, topo: MeshTopology) -> None:
+    """Raise NotImplementedError for what the port cannot run yet."""
+    if (len(topo.patch_ids_matching(params.layer_patches))
             and params.layer_max_blending_fraction > 1e-15):
         raise NotImplementedError(
             "boundary-layer blending (layer_patches) arrives with slice 4 "
@@ -140,7 +154,6 @@ class Smoother:
                  dtype=None, topo: Optional[MeshTopology] = None,
                  device=None):
         device = resolve_device(device)
-        check_supported(params)     # before the topology compile
         orders = None
         mesh_int = mesh
         if topo is None:

@@ -14,7 +14,7 @@ the kernel's launch count.
 
 Arithmetic: ``--fmad=false`` keeps ``a*b+c`` as two rounded operations,
 as the plain PyTorch versions compute it, so the kernels agree with
-them to the last bits except for summation order.  All four kernels are
+them to the last bits except for summation order.  All six kernels are
 bound by memory traffic, not by floating-point issue rate, so the
 contraction would buy nothing measurable.
 """
@@ -180,5 +180,14 @@ FREEZE = Kernel(
     "K4 freeze_constraints", "freeze.cu", "smk_freeze_constraints",
     [P, P, P, P, P, P, P, P, I, I, I, F, I, F, I, P],
     "smoothmesh_tpu/ops/tiledstep.py:724")
+FACE_ANGLES = Kernel(
+    "K5 edge_face_angles", "face_angles.cu", "smk_face_angles",
+    [P, P, P, P, P, P, P, P, P, I, I, I, P],
+    "smoothmesh_tpu/ops/tiledstep.py:640")
+POINT_FACE_ANGLES = Kernel(
+    "K6 point_face_angles", "point_face_angles.cu", "smk_point_face_angles",
+    [P, P, P, I, I, P],
+    "smoothmesh_tpu/ops/tiledstep.py:710")
 
-ALL = (FACE_GEOMETRY, CELL_CENTRES, PREDICTOR, FREEZE)
+ALL = (FACE_GEOMETRY, CELL_CENTRES, PREDICTOR, FREEZE, FACE_ANGLES,
+       POINT_FACE_ANGLES)

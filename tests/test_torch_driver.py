@@ -1,20 +1,31 @@
 """The port's Smoother (device="cpu", float64: the plain versions of
-K1-K4 plus the iteration glue) against the JAX package's Smoother on
-its XLA path, both with face_angle_constraint=False: residuals to 1e-9
-relative, equal frozen counts at every iteration, and denormalized
-points to 1e-9 — from the mesh, and from the JAX smoother's state
+K1-K4, the face-angle fixed point and the iteration glue) against the
+JAX package's Smoother on its XLA path: residuals to 1e-9 relative,
+equal frozen counts at every iteration, and denormalized points to
+1e-9 — with the face angle off, and on at the default 35/160 degree
+band and at 60/120; from the mesh, and from the JAX smoother's state
 carried across.  Plus the relTol stop, the run loop's log lines and
-writes, and the configurations this slice refuses."""
+writes, and the configurations the port refuses.
+
+The JAX smoothers with the face angle on are traced with
+``SMOOTHMESH_FA_SLOT_SCAN=1`` (the JAX fixed point's pair slots as a
+``fori_loop``, bit-identical by its own design note), which builds
+~3x faster here; each is built once and shared by the tests."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from smoothmesh_tpu import driver as jax_driver
 from smoothmesh_tpu.driver import Smoother as JaxSmoother
 from smoothmesh_tpu.mesh.blockmesh import hex_block as jax_hex
 from smoothmesh_tpu.mesh.blockmesh import perturb as jax_perturb
+from smoothmesh_tpu.ops import constraints as jcon
 from smoothmesh_tpu.params import SmoothingParams as JaxParams
 from smoothmesh_torch.convert import state_from_jax
 from smoothmesh_torch.driver import Smoother
@@ -22,22 +33,64 @@ from smoothmesh_torch.mesh.blockmesh import hex_block, perturb
 from smoothmesh_torch.params import SmoothingParams
 
 ITERS = 6
+#: face-angle bands (degrees) of the face-angle-on runs
+BANDS = {"default": {}, "60-120": dict(min_angle=60.0, max_angle=120.0)}
+CARRY_AT = 2     # iterations before the state is carried across
 
 
 def _mesh():
     return perturb(hex_block(n=(10, 8, 8)), amplitude=0.06, seed=7)
 
 
-def _jax_smoother(**kw):
+def _jax_smoother(face_angle_constraint=False, **kw):
     mesh = jax_perturb(jax_hex(n=(10, 8, 8)), amplitude=0.06, seed=7)
-    return JaxSmoother(mesh, JaxParams(face_angle_constraint=False, **kw),
-                       dtype=np.float64, use_tile_engine=False)
+    return JaxSmoother(mesh, JaxParams(
+        face_angle_constraint=face_angle_constraint, **kw),
+        dtype=np.float64, use_tile_engine=False)
 
 
-def _smoother(**kw):
-    return Smoother(_mesh(), SmoothingParams(face_angle_constraint=False,
-                                             **kw),
-                    device="cpu", dtype=torch.float64)
+def _smoother(face_angle_constraint=False, **kw):
+    return Smoother(_mesh(), SmoothingParams(
+        face_angle_constraint=face_angle_constraint, **kw),
+        device="cpu", dtype=torch.float64)
+
+
+def _tile_form(points, cell_ctrs, proposed, td, min_angle_rad,
+               max_angle_rad, frozen, **kw):
+    """The JAX XLA driver's face-angle call in the form of its tile
+    branch (smoothmesh_tpu/driver.py:321-327), as the port calls it: u
+    space, the current angles handed in (here from the XLA per-edge
+    pass, mapped to u), hence its 1e-5 u guard."""
+    fc = jcon.simple_face_centres(points, td)
+    cur = jcon.current_face_angles_per_point(points, cell_ctrs, td,
+                                             fc_base=fc)
+    u = tuple(jnp.where(a <= jnp.pi, 1.0 - jnp.cos(a), 3.0 + jnp.cos(a))
+              for a in cur)
+    return jcon.restrict_face_angle_deterioration(
+        points, cell_ctrs, proposed, td, min_angle_rad, max_angle_rad,
+        frozen, fc_base=fc, cur_minmax=u, u_space=True, **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_face_angle_run(band):
+    """The JAX smoother with the face angle on, ITERS iterations ->
+    (results, its state after CARRY_AT iterations, final points)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SMOOTHMESH_FA_SLOT_SCAN", "1")
+        mp.setattr(jax_driver, "restrict_face_angle_deterioration",
+                   _tile_form)
+        sj = _jax_smoother(face_angle_constraint=True,
+                           centroidal_iters=ITERS, rel_tol=0.0,
+                           **BANDS[band])
+        results = sj.steps(CARRY_AT)
+        state = dict(
+            points=np.asarray(sj.points),
+            topo_arrays={f.name: getattr(sj.topo, f.name)
+                         for f in dataclasses.fields(sj.topo)},
+            params=dataclasses.asdict(sj.params), center=sj._center,
+            scale=sj._scale, denormalized=sj.denormalize())
+        results += sj.steps(ITERS - CARRY_AT)
+    return results, state, sj.denormalize()
 
 
 def _assert_same_run(got, want):
@@ -63,23 +116,33 @@ def test_smoother_matches_jax_f64():
                                atol=1e-9)
 
 
+@pytest.mark.parametrize("band", list(BANDS))
+def test_smoother_face_angle_matches_jax_f64(band):
+    want, _, want_pts = _jax_face_angle_run(band)
+    st = _smoother(face_angle_constraint=True, centroidal_iters=ITERS,
+                   rel_tol=0.0, **BANDS[band])
+    got = st.steps(ITERS)
+    _assert_same_run(got, want)
+    # the face angle freezes internal points beyond the boundary ones
+    n_bnd = int((~st.topo.is_internal_point).sum())
+    assert min(r.n_frozen for r in got) > n_bnd
+    np.testing.assert_allclose(st.denormalize(), want_pts, rtol=0,
+                               atol=1e-9)
+
+
 def test_state_from_jax_matches():
-    kw = dict(centroidal_iters=ITERS, rel_tol=0.0)
-    sj = _jax_smoother(**kw)
-    sj.steps(2)                 # carry a state that has already moved
-    topo = {f.name: getattr(sj.topo, f.name)
-            for f in dataclasses.fields(sj.topo)}
-    st = state_from_jax(np.asarray(sj.points), topo,
-                        dataclasses.asdict(sj.params), sj._center,
-                        sj._scale, device="cpu", dtype=torch.float64)
-    np.testing.assert_array_equal(st.denormalize(), sj.denormalize())
-    want = sj.steps(ITERS - 2)
-    got = st.steps(ITERS - 2)
-    for g, w in zip(got, want):
+    want, state, want_pts = _jax_face_angle_run("default")
+    st = state_from_jax(state["points"], state["topo_arrays"],
+                        state["params"], state["center"], state["scale"],
+                        device="cpu", dtype=torch.float64)
+    assert st.params.face_angle_constraint
+    np.testing.assert_array_equal(st.denormalize(), state["denormalized"])
+    got = st.steps(ITERS - CARRY_AT)
+    for g, w in zip(got, want[CARRY_AT:]):
         assert g.residual == pytest.approx(w.residual, rel=1e-9)
         assert g.n_frozen == w.n_frozen
-    assert len(got) == len(want) == ITERS - 2
-    np.testing.assert_allclose(st.denormalize(), sj.denormalize(), rtol=0,
+    assert len(got) == ITERS - CARRY_AT
+    np.testing.assert_allclose(st.denormalize(), want_pts, rtol=0,
                                atol=1e-9)
 
 
@@ -114,14 +177,36 @@ def test_unsupported_configurations_raise():
     mesh = hex_block(n=(4, 4, 4), patches={"top": ["zmax"],
                                            "rest": ["xmin", "xmax", "ymin",
                                                     "ymax", "zmin"]})
-    with pytest.raises(NotImplementedError, match="face-angle"):
-        Smoother(mesh, SmoothingParams(), device="cpu")
+    # the reference's defaults (face angle on) construct and step
+    st = Smoother(mesh, SmoothingParams(), device="cpu")
+    assert st.params.face_angle_constraint
+    r = st.step()
+    assert r.iteration == 1 and np.isfinite(r.residual)
     with pytest.raises(NotImplementedError, match="layer"):
-        Smoother(mesh, SmoothingParams(face_angle_constraint=False,
-                                       layer_patches=("top",)),
+        Smoother(mesh, SmoothingParams(layer_patches=("top",)),
                  device="cpu")
-    st = Smoother(mesh, SmoothingParams(face_angle_constraint=False,
-                                        layer_patches=("nomatch",)),
+    st = Smoother(mesh, SmoothingParams(layer_patches=("nomatch",)),
                   device="cpu")
     with pytest.raises(NotImplementedError, match="boundary"):
         st.enable_boundary_smoothing(None, None, None, None)
+
+
+def test_td_keys_exact():
+    """driver.TD_KEYS is exactly what one iteration of the default
+    configuration reads: nothing staged unread, nothing read unstaged."""
+    from smoothmesh_torch.device import to_device
+    from smoothmesh_torch.driver import TD_KEYS, iteration_body
+
+    class Recording(dict):
+        used = set()
+
+        def __getitem__(self, k):
+            self.used.add(k)
+            return dict.__getitem__(self, k)
+
+    st = _smoother(face_angle_constraint=True, min_angle=60.0,
+                   max_angle=120.0)
+    assert set(st.td) == TD_KEYS
+    td = Recording(to_device(st.topo, "cpu"))
+    iteration_body(st.points, td, st.params, st._scale)
+    assert td.used == TD_KEYS

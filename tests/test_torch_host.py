@@ -93,7 +93,9 @@ def test_to_device_matches(kind):
     topo = compile_topology(TORCH_MESHES[kind])
     td = to_device(topo, "cpu")
     want = jax_to_device(jax_compile(JAX_MESHES[kind], use_native=False))
-    assert set(td) == set(want) - FA_PACKED_KEYS
+    # the port stages the two packed tables its fixed point reads
+    assert set(td) == set(want) - (FA_PACKED_KEYS
+                                   - {"pps_signed", "pe_flat"})
     for k, v in td.items():
         w = np.asarray(want[k])
         assert v.dtype == (torch.bool if w.dtype == np.bool_
