@@ -2,10 +2,12 @@
 """Smoke run of the PyTorch port (smoothmesh_torch) on one CUDA card.
 
 Phases, each fatal on failure:
-  1. the card's name and power limit; build the CUDA kernels (K1-K6,
-     one nvcc per source, all at once) and print the build time;
-  2. the 128^3 graded, perturbed hex of bench.py (2,146,689 points) and
-     a Smoother with the default parameters (face angle on);
+  1. the card's name and power limit; build the CUDA kernels (K1-K6 and
+     K8, one nvcc per source, all at once) and print the build time;
+  2. the 128^3 graded, perturbed hex of bench.py (2,146,689 points),
+     with the patches of its boundary mode ("top" = zmax, "rest" = the
+     other five), and a Smoother with the default parameters (face
+     angle on; boundary points fixed);
   3. each kernel against its plain PyTorch version on the card, on the
      main path's inputs: the largest error scaled by the field's
      magnitude (<= 1e-4) or the freeze-mask mismatches (<= 1e-4 * N),
@@ -15,15 +17,30 @@ Phases, each fatal on failure:
      (60/120 degrees), once with the current angles from K5/K6 and once
      from their plain versions: more than 0 points frozen, at most
      1e-4 * N masks differing; its frozen count, sweeps and time;
-  4. the main path: Smoother(...).steps(32) with the defaults, every
-     one of K1-K6 launched once per iteration, finite residuals,
-     0 <= nFrozen <= N and positive cell volumes at the end; then a
-     32^3 mesh for 8 iterations through the kernels and through the
-     plain versions on the card, with the face angle off, at the
-     default band, at 60/120 and at 80/100, which freezes internal
-     points there (residuals within 2e-3, frozen counts within
-     10% + 10);
-  5. one JSON line of the kernels, then the last line
+  4. the default path: Smoother(...).steps(32) with the defaults, every
+     one of K1-K6 launched once per iteration and K8 never, finite
+     residuals, 0 <= nFrozen <= N and positive cell volumes at the end;
+  5. the boundary path on the same mesh and compiled topology, in
+     bench.py's boundary configuration (layers and boundary smoothing
+     on the top patch, min angle 15, ray misses frozen, the k = 64 dome
+     as target surface): on the first iteration's inputs, K8 against
+     its plain version (at most 1e-4 * B rays differing in hit or miss,
+     the others within 1e-5 relative), also on a random soup of 1,000
+     triangles (not a multiple of the tile), K3 with boundary points
+     moving and K4 with the boundary pass's incoming freeze mask against
+     theirs, and the times of the plain-PyTorch boundary stages; then
+     Smoother.steps(32) with every kernel (K8 too) launched once per
+     iteration, the top points' largest distance to the dome falling,
+     and positive cell volumes;
+  6. a 32^3 mesh of the same recipe for 8 iterations through the kernels
+     and through the plain versions on the card, with the face angle
+     off, at the default band, at 60/120 and at 80/100 (which freezes
+     internal points there), and in the boundary configuration with
+     the max step pinned above the raw steps (residuals within 2e-3,
+     frozen counts within 10% + 10, equal ray-miss counts; in the
+     boundary configuration also every residual below 1 and the points
+     within 1e-3 at the end);
+  7. one JSON line of the kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without
@@ -34,6 +51,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -54,6 +72,16 @@ SMALL_SIDE = 32
 SMALL_ITERS = 8
 TIGHT_BAND = (60.0, 120.0)    # degrees: bites on the 128^3 bench mesh
 TIGHTER_BAND = (80.0, 100.0)  # degrees: bites on the 32^3 one too
+#: the 32^3 boundary comparison's max step (external units), above its
+#: raw steps: a step at the limiter lands on the limiter's discontinuity
+SMALL_BND_MAX_STEP = 0.25
+BND_POINT_TOL = 1e-3          # normalized units (minimum edge length 1)
+#: bench.py's boundary-mode patches (bench.py:126-130)
+TOP_PATCHES = {"top": ["zmax"],
+               "rest": ["xmin", "xmax", "ymin", "ymax", "zmin"]}
+#: fp32 operations of one ray-triangle test in K8's body: 27 multiplies,
+#: 18 adds and subtracts, 1 division, 8 comparisons, an abs and a select
+RAY_TEST_OPS = 56
 #: the device tables that the face angle adds (K5, K6, the fixed point)
 FACE_ANGLE_KEYS = ("edges", "edge_faces", "edge_cells", "edge_cells_mask",
                    "edge_cell_f0", "edge_cell_f1", "point_edges",
@@ -67,11 +95,11 @@ def require(cond, msg: str) -> None:
 
 def bench_mesh(side: int):
     """bench.py's mesh: graded hex (2.0, 1.0, 0.5), perturbed by 0.25 x
-    the minimum spacing, seed 3."""
+    the minimum spacing, seed 3, with its boundary mode's patches."""
     from smoothmesh_torch.mesh.blockmesh import hex_block, perturb
 
     base = hex_block(n=(side, side, side), grading=(2.0, 1.0, 0.5),
-                     patches="default")
+                     patches=TOP_PATCHES)
     min_spacing = min(np.diff(np.unique(base.points[:, a])).min()
                       for a in range(3))
     return perturb(base, amplitude=0.25 * min_spacing, seed=3)
@@ -111,6 +139,261 @@ def bound(n_bytes: int, n_ops: float):
     t_ops = n_ops / FP32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def boundary_params(iters: int):
+    """bench.py's boundary configuration (bench.py:98-101,146-149)."""
+    from smoothmesh_torch.params import SmoothingParams
+
+    return SmoothingParams(centroidal_iters=iters, rel_tol=0.0,
+                           smoothing_patches=("top",),
+                           layer_patches=("top",), min_angle=15.0,
+                           ray_miss_fatal=False)
+
+
+def check_rays(name, got, want, n_rays: int):
+    """K8 against its plain version, held like a mask: rays on an edge
+    shared by two triangles sit on the barycentric tolerance's knife
+    edge, so at most MASK_TOL * n_rays rays may differ in hit or miss;
+    where both hit, t agrees within 1e-5 relative.  -> (max abs error
+    where both hit, rays differing, hits of the plain version)."""
+    differ = torch.zeros(n_rays, dtype=torch.bool, device=want[0].device)
+    err, beyond, hits = 0.0, 0, 0
+    for g, w in zip(got, want):
+        fg, fw = torch.isfinite(g), torch.isfinite(w)
+        differ |= fg != fw
+        both = fg & fw
+        d = (g - w).abs()[both]
+        if d.numel():
+            err = max(err, float(d.max()))
+            beyond += int((d > 1e-5 * w.abs()[both]).sum())
+        hits += int(fw.sum())
+    n_differ = int(differ.sum())
+    require(n_differ <= MASK_TOL * n_rays and beyond == 0,
+            f"{name}: {n_differ} of {n_rays} rays differ in hit or miss, "
+            f"{beyond} hit times beyond 1e-5 relative")
+    require(hits > 0, f"{name}: no ray hit")
+    return err, n_differ, hits
+
+
+def boundary_path(topo, mesh_int, smi: str) -> dict:
+    """Phase 5: the boundary path at 128^3 -> its K8 record and launch
+    counts."""
+    from smoothmesh_torch import boundary as bps
+    from smoothmesh_torch import geometry as geo
+    from smoothmesh_torch import kernels
+    from smoothmesh_torch import layers as lay
+    from smoothmesh_torch.driver import (KERNEL_STAGES, Smoother, Stages,
+                                         iteration_body)
+    from smoothmesh_torch.ops import constraints as con
+    from smoothmesh_torch.ops import raycast
+    from smoothmesh_torch.ops import smoothing as smo
+    from smoothmesh_torch.testcases import bench_dome_geometry
+
+    dome_z, V, T, bpts, bedges = bench_dome_geometry()
+    t0 = time.perf_counter()
+    sb = Smoother(mesh_int, boundary_params(MAIN_ITERS), topo=topo,
+                  device="cuda")
+    torch.cuda.synchronize()
+    t_maps = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    setup = sb.enable_boundary_smoothing(V, T, bpts, bedges)
+    torch.cuda.synchronize()
+    t_cls = time.perf_counter() - t0
+    p, td, bd, N, dev = sb.params, sb.td, sb.bnd, topo.n_points, sb.device
+    rows = bd["surf_rows"]
+    n_rays, n_tri = rows.numel(), bd["tri_packed"].shape[1]
+    tables = [*sb.layer.values(),
+              *(v for v in bd.values() if isinstance(v, torch.Tensor))]
+    print(f"boundary path at {MAIN_SIDE}^3: Smoother set-up on the "
+          f"compiled topology (upload, normals, layer maps) {t_maps:.2f} s,"
+          f" boundary classification {t_cls:.2f} s; {n_rays} rays (free "
+          f"top points), {int(setup.is_feature_edge.sum())} feature "
+          f"points, {int(setup.is_corner.sum())} corners, {n_tri} "
+          f"triangles, {int((sb.layer['outer_map'] >= 0).sum())} outer "
+          f"and {int((bd['inner_map'] >= 0).sum())} inner layer maps; "
+          f"device topology {nbytes(*td.values()) / 1e9:.3f} GB, boundary "
+          f"and layer tables {nbytes(*tables) / 1e9:.3f} GB", flush=True)
+
+    # the first iteration's inputs of each kernel stage
+    rec = {}
+
+    def recording(name, fn):
+        def call(*args):
+            out = fn(*args)
+            rec[name] = (args, out)
+            return out
+        return call
+
+    stages = Stages(*(recording(n, f) for n, f in
+                      zip(Stages._fields, KERNEL_STAGES)))
+    iteration_body(sb.points, td, p, sb._scale, stages, normals=sb.normals,
+                   smoothing_surface=sb.smoothing_surface, layer=sb.layer,
+                   bnd=bd)
+    torch.cuda.synchronize()
+
+    # K8 on the first iteration's rays, then on a random soup
+    (o, d, max_dist, tri), got = rec["ray_cast"]
+    want = raycast.segment_triangle_hits_plain(o, d, max_dist, tri)
+    err, n_differ, hits = check_rays("K8", got, want, n_rays)
+    ms = device_ms(lambda: raycast.segment_triangle_hits(o, d, max_dist,
+                                                         tri), 20)
+    plain_ms = device_ms(lambda: raycast.segment_triangle_hits_plain(
+        o, d, max_dist, tri), 5)
+    work = (nbytes(o, d, tri, *got), RAY_TEST_OPS * n_rays * n_tri)
+    b_ms, b_by = bound(*work)
+    print(f"K8 segment_triangle_hits at {MAIN_SIDE}^3 ({n_rays} rays x "
+          f"{n_tri} triangles): {n_differ} rays differ in hit or miss, "
+          f"{hits} hits, max abs err {err:.3g}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) on {smi}",
+          flush=True)
+    rng = np.random.default_rng(0)
+    ta = rng.random((1000, 3)) * 2
+    soup = torch.tensor(raycast.pack_triangles(
+        ta, ta + rng.random((1000, 3)) * 0.5, ta + rng.random((1000, 3))
+        * 0.5), device=dev)
+    ro = torch.tensor(rng.random((5000, 3)) * 2, dtype=torch.float32,
+                      device=dev)
+    rd = torch.nn.functional.normalize(torch.tensor(
+        rng.normal(size=(5000, 3)), dtype=torch.float32, device=dev), dim=1)
+    r_err, r_differ, r_hits = check_rays(
+        "K8 (random soup)", raycast.segment_triangle_hits(ro, rd, 10.0, soup),
+        raycast.segment_triangle_hits_plain(ro, rd, 10.0, soup), 5000)
+    print(f"K8 on a random soup (5000 rays x 1000 triangles): {r_differ} "
+          f"rays differ in hit or miss, {r_hits} hits, max abs err "
+          f"{r_err:.3g}", flush=True)
+
+    # K3 with boundary points moving, K4 with the boundary pass's mask
+    args, got = rec["predictor"]
+    want = smo.predictor_plain(*args)
+    k3_err, scaled = field_err(got, want)
+    per_pt = torch.maximum((got[0] - want[0]).abs().amax(1),
+                           (got[1] - want[1]).abs()) / float(
+                               want[0].abs().max())
+    beyond = int((per_pt > FIELD_TOL).sum())
+    intern = td["is_internal_point"]
+    moving = int(((want[0] != args[0]).any(1) & ~intern).sum())
+    require(args[5] and beyond <= MASK_TOL * N and moving > 0,
+            f"K3 (boundary): {beyond} points beyond scaled error "
+            f"{FIELD_TOL}, {moving} boundary points moving")
+    print(f"K3 with boundary smoothing on: max abs err {k3_err:.3g}, "
+          f"scaled {scaled:.3g}; {beyond} of {N} points beyond it; "
+          f"{moving} boundary points move", flush=True)
+    args, got = rec["freeze_constraints"]
+    incoming = args[-1]
+    extra = incoming | torch.tensor(rng.random(N) < 0.01, device=dev)
+    mism = []
+    for mask in (incoming, extra):
+        a = args[:-1] + (mask,)
+        k = con.freeze_constraints(*a)
+        mism.append(int((k != con.freeze_constraints_plain(*a)).sum()))
+        require(bool((k | ~mask).all()), "K4 dropped an incoming freeze")
+    require(max(mism) <= MASK_TOL * N,
+            f"K4 (incoming mask): {mism} freeze-mask mismatches")
+    print(f"K4 with the boundary pass's incoming mask ({int(incoming.sum())}"
+          f" frozen on entry, {int(got.sum())} on exit): {mism[0]} "
+          f"mismatches of {N}; with 1% of points more frozen on entry "
+          f"({int(extra.sum())}): {mism[1]} mismatches", flush=True)
+
+    # the boundary stages in plain PyTorch (K8 inside the projection)
+    pts, fg = sb.points, rec["face_geometry"][1]
+    prop = rec["predictor"][1][0]
+    max_step = p.max_step_length * sb._scale
+    normals, sharp = lay.accumulate_point_normals(sb.normals, fg.areas, td)
+
+    def blend():
+        outer = lay.update_neigh_coords(pts, sb.layer["outer_map"])
+        q = lay.blend_with_orthogonal_points(
+            pts, prop, td, sb.layer["hops_layer"], normals, outer,
+            p.layer_max_blending_fraction, p.layer_edge_length * sb._scale,
+            p.layer_expansion_ratio, p.min_layers, p.max_layers + 1)
+        return smo.constrain_max_step_length(pts, q, max_step,
+                                             p.rel_step_frac)
+
+    prop_l = blend()
+    none = torch.zeros(N, dtype=torch.bool, device=dev)
+
+    def project():
+        return bps.project_boundary_points(pts, prop_l, normals, none, bd,
+                                           td, sharp, fg.centres)
+
+    prop_b = project()[0]
+
+    def prismatic():
+        inner = lay.update_neigh_coords(pts, bd["inner_map"])
+        q = lay.project_prismatic_boundary_points(
+            prop_b, bd, normals, inner, sharp,
+            p.internal_smoothing_blending_fraction)
+        return smo.constrain_max_step_length(pts, q, max_step,
+                                             p.rel_step_frac)
+
+    stage_ms = {name: device_ms(fn, 10) for name, fn in (
+        ("normals", lambda: lay.accumulate_point_normals(
+            sb.normals, fg.areas, td)),
+        ("layer blend", blend), ("boundary projection", project),
+        ("prismatic projection", prismatic))}
+    print("boundary stages (plain PyTorch, first iteration's inputs, "
+          "device ms): " + ", ".join(f"{k} {v:.4f}"
+                                     for k, v in stage_ms.items())
+          + f"; {sum(stage_ms.values()):.4f} in all, of which K8 "
+          f"{ms:.4f}", flush=True)
+    del rec, prop, prop_l, prop_b, normals, sharp, fg, got, want
+
+    # the path itself
+    top = rows.cpu().numpy()
+
+    def dome_err():
+        q = sb.denormalize()[top]
+        return float(np.abs(q[:, 2] - dome_z(np.clip(q[:, 0], 0, 1),
+                                             np.clip(q[:, 1], 0, 1))).max())
+
+    err_before = dome_err()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    steps = sb.steps(MAIN_ITERS)
+    t_run = time.perf_counter() - t0
+    launches = {k: k.launches for k in kernels.ALL}
+    require(len(steps) == MAIN_ITERS, f"{len(steps)} iterations ran")
+    for k, n in launches.items():
+        require(n == MAIN_ITERS, f"{k.name} launched {n} times in "
+                f"{MAIN_ITERS} iterations of the boundary path")
+    for r in steps:
+        require(math.isfinite(r.residual), f"residual {r.residual}")
+        require(0 <= r.n_frozen <= N, f"nFrozenPoints {r.n_frozen}")
+    for r in (steps[0], steps[1], steps[-1]):
+        print(f"Smoothing iteration={r.iteration} "
+              f"nFrozenPoints={r.n_frozen} residual={r.residual:.6g} "
+              f"nRayMisses={r.n_ray_miss}")
+    err_after = dome_err()
+    require(err_after < err_before, f"the top points' largest distance "
+            f"to the dome went from {err_before} to {err_after}")
+    fgn = geo.face_centres_areas(sb.points, td["face_points"],
+                                 td["face_mask"], td["face_npoints"])
+    _, vol = geo.cell_centres_vols(fgn, td["owner"], td["cell_faces"],
+                                   td["cell_faces_mask"])
+    vmin = float(vol.min())
+    require(vmin > 0, f"cell volume {vmin} at the end of the boundary path")
+    walls = [r.wall_ms for r in steps]
+    iter_ms = float(np.mean(walls))
+    print(f"boundary path (layers + boundary smoothing): {MAIN_ITERS} "
+          f"iterations in {t_run:.2f} s; {iter_ms:.3f} ms/iteration (median"
+          f" {np.median(walls):.3f}, max {max(walls):.3f} at iteration "
+          f"{int(np.argmax(walls)) + 1} of {len(walls)}), "
+          f"{N / (iter_ms / 1e3):,.0f} point-updates/s on {smi}; nFrozen "
+          f"{steps[0].n_frozen} -> {steps[-1].n_frozen}, ray misses "
+          f"{sum(r.n_ray_miss for r in steps)} in all; largest |z - dome|"
+          f" over the free top points {err_before:.6g} -> {err_after:.6g};"
+          f" peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; min cell "
+          f"volume {vmin:.4g} (normalized units)", flush=True)
+    return dict(record=dict(
+        name=kernels.RAYCAST.name, route="cuda",
+        source=f"smoothmesh_torch/csrc/{kernels.RAYCAST.source}",
+        replaces=kernels.RAYCAST.replaces, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bytes=work[0], ops=work[1], rays_differing=n_differ,
+        random_soup_rays_differing=r_differ), launches=launches)
 
 
 def main() -> int:
@@ -285,7 +568,7 @@ def main() -> int:
          (nbytes(ue_p, pe, pem, up_p), 2 * n_pe)),
     )
     results = {}
-    for k, (run_k, run_p, check, want, work) in zip(kernels.ALL, stages):
+    for k, (run_k, run_p, check, want, work) in zip(kernels.ALL[:6], stages):
         got = run_k()
         torch.cuda.synchronize()
         err, extra, msg = check(k.name, got, want)
@@ -340,7 +623,7 @@ def main() -> int:
           f"synchronized) on {smi}", flush=True)
     del fg_p, cc_p, vol_p, prop_p, curmin_p, frz_p, ue_p, up_p, cur_k, cur_p
 
-    # -- 4. the main path through the user's entry point ---------------------
+    # -- 4. the default path through the user's entry point ------------------
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -349,8 +632,9 @@ def main() -> int:
     launches = {k: k.launches for k in kernels.ALL}
     require(len(steps) == MAIN_ITERS, f"{len(steps)} iterations ran")
     for k, n in launches.items():
-        require(n == MAIN_ITERS, f"{k.name} launched {n} times in "
-                f"{MAIN_ITERS} iterations")
+        want_n = 0 if k is kernels.RAYCAST else MAIN_ITERS
+        require(n == want_n, f"{k.name} launched {n} times in "
+                f"{MAIN_ITERS} iterations of the default path")
     for r in steps:
         require(math.isfinite(r.residual), f"residual {r.residual}")
         require(0 <= r.n_frozen <= N, f"nFrozenPoints {r.n_frozen}")
@@ -363,15 +647,21 @@ def main() -> int:
     require(vmin > 0, f"cell volume {vmin} at the end")
     walls = [r.wall_ms for r in steps]
     iter_ms = float(np.mean(walls))
-    print(f"main path (defaults, face angle on): {MAIN_ITERS} iterations "
+    print(f"default path (face angle on): {MAIN_ITERS} iterations "
           f"in {t_run:.2f} s; {iter_ms:.3f} ms/iteration (median "
           f"{np.median(walls):.3f}, max {max(walls):.3f} at iteration "
           f"{int(np.argmax(walls)) + 1} of {len(walls)}), "
           f"{N / (iter_ms / 1e3):,.0f} point-updates/s on {smi}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB; min cell volume {vmin:.4g} (normalized units)", flush=True)
+    mesh_int = sm.mesh_internal
     del sm, td, pts, fg, vol
 
+    # -- 5. the boundary path on the same mesh and topology -------------------
+    bnd = boundary_path(topo, mesh_int, smi)
+    results[kernels.RAYCAST] = bnd["record"]
+
+    # -- 6. 32^3: kernels against plain versions over 8 iterations ----------
     small = bench_mesh(SMALL_SIDE)
     configs = [("face angle off", dict(face_angle_constraint=False)),
                ("default band", {})]
@@ -384,8 +674,8 @@ def main() -> int:
         pts_p = sk.points.clone()
         rk = sk.steps(SMALL_ITERS)
         for i, r in enumerate(rk):
-            pts_p, res_p, nf_p = iteration_body(pts_p, sk.td, sk.params,
-                                                sk._scale, PLAIN_STAGES)
+            pts_p, _, res_p, nf_p, _ = iteration_body(
+                pts_p, sk.td, sk.params, sk._scale, PLAIN_STAGES)
             res_p, nf_p = float(res_p), int(nf_p)
             where = f"{SMALL_SIDE}^3 {label}, iteration {i + 1}"
             require(abs(r.residual - res_p) < 2e-3,
@@ -401,9 +691,46 @@ def main() -> int:
     require(rk[-1].n_frozen > n_bnd,
             f"{SMALL_SIDE}^3, band {TIGHTER_BAND}: no internal point froze")
 
-    # -- 5. the record ----------------------------------------------------
+    from smoothmesh_torch.testcases import bench_dome_geometry
+
+    sk = Smoother(small, dataclasses.replace(
+        boundary_params(SMALL_ITERS), max_step_length=SMALL_BND_MAX_STEP),
+        device="cuda")
+    sk.enable_boundary_smoothing(*bench_dome_geometry()[1:])
+    pts_p, nrm_p = sk.points.clone(), sk.normals.clone()
+    rk = sk.steps(SMALL_ITERS)
+    for i, r in enumerate(rk):
+        pts_p, nrm_p, res_p, nf_p, nm_p = iteration_body(
+            pts_p, sk.td, sk.params, sk._scale, PLAIN_STAGES, normals=nrm_p,
+            smoothing_surface=sk.smoothing_surface, layer=sk.layer,
+            bnd=sk.bnd)
+        res_p, nf_p, nm_p = float(res_p), int(nf_p), int(nm_p)
+        where = f"{SMALL_SIDE}^3 boundary path, iteration {i + 1}"
+        require(abs(r.residual - res_p) < 2e-3,
+                f"{where}: residual {r.residual} (kernels) vs {res_p} "
+                "(plain)")
+        require(abs(r.n_frozen - nf_p) <= 0.1 * nf_p + 10,
+                f"{where}: nFrozen {r.n_frozen} (kernels) vs {nf_p} (plain)")
+        require(r.n_ray_miss == nm_p, f"{where}: ray misses "
+                f"{r.n_ray_miss} (kernels) vs {nm_p} (plain)")
+        require(r.residual < 1.0, f"{where}: residual {r.residual}: a "
+                "step reached the limiter")
+    moved = float((pts_p - sk.points).abs().max())
+    require(moved < BND_POINT_TOL, f"{SMALL_SIDE}^3 boundary path: points "
+            f"{moved} apart at the end (kernels vs plain)")
+    print(f"{SMALL_SIDE}^3 x {SMALL_ITERS}, boundary path (layers + boundary"
+          f" smoothing, max step {SMALL_BND_MAX_STEP}): kernels and plain "
+          f"versions agree (last residual {rk[-1].residual:.6g} vs "
+          f"{res_p:.6g}, nFrozen {rk[-1].n_frozen} vs {nf_p}, ray misses "
+          f"{rk[-1].n_ray_miss} vs {nm_p}; largest point difference at the "
+          f"end {moved:.3g} < {BND_POINT_TOL}, normalized units)", flush=True)
+
+    # -- 7. the record ----------------------------------------------------
     for k in results:
-        results[k]["launches"] = launches[k]
+        results[k]["launches"] = (bnd["launches"][k] if k is kernels.RAYCAST
+                                  else launches[k])
+        results[k]["launches_default_path"] = launches[k]
+        results[k]["launches_boundary_path"] = bnd["launches"][k]
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

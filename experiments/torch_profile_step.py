@@ -1,7 +1,9 @@
 """Where one iteration of the port's main path spends its time (H100).
 
 Builds the CUDA kernels, sets up the 128^3 bench mesh of chip_smoke.py
-with the default parameters (face angle on; ``--band`` sets its band),
+with the default parameters (face angle on; ``--band`` sets its band)
+or, with ``--boundary``, in bench.py's boundary configuration (layers +
+boundary smoothing onto the k = 64 dome, chip_smoke.boundary_params),
 runs 4 warm-up iterations, then traces ``--iters`` iterations of
 ``Smoother.steps`` with ``torch.profiler``, writes the chrome trace to
 chiprun_out/torch_profile_step_<band>.json and summarizes it: device
@@ -11,7 +13,7 @@ iteration by kernel, with the card's name and power limit.
 
 Run from the repository root on a machine with a CUDA card:
     python experiments/torch_profile_step.py [--side 128] [--iters 8]
-        [--band 60 120]
+        [--band 60 120 | --boundary]
 Summarize a trace again (no card needed):
     python experiments/torch_profile_step.py --summarize TRACE --iters 8
 """
@@ -34,6 +36,7 @@ import chip_smoke  # noqa: E402
 from smoothmesh_torch import kernels  # noqa: E402
 from smoothmesh_torch.driver import Smoother  # noqa: E402
 from smoothmesh_torch.params import SmoothingParams  # noqa: E402
+from smoothmesh_torch.testcases import bench_dome_geometry  # noqa: E402
 
 
 def summarize(trace_path: str, iters: int) -> None:
@@ -72,6 +75,8 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=8)
     ap.add_argument("--band", type=float, nargs=2, default=(35.0, 160.0),
                     help="face-angle band in degrees (default 35 160)")
+    ap.add_argument("--boundary", action="store_true",
+                    help="bench.py's boundary configuration instead")
     ap.add_argument("--summarize", metavar="TRACE",
                     help="summarize an existing trace and exit")
     args = ap.parse_args()
@@ -87,9 +92,16 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     kernels.build_all()
-    sm = Smoother(chip_smoke.bench_mesh(args.side),
-                  SmoothingParams(rel_tol=0.0, min_angle=args.band[0],
-                                  max_angle=args.band[1]), device="cuda")
+    if args.boundary:
+        params = chip_smoke.boundary_params(1000)
+        label = "boundary"
+    else:
+        params = SmoothingParams(rel_tol=0.0, min_angle=args.band[0],
+                                 max_angle=args.band[1])
+        label = f"{args.band[0]:g}_{args.band[1]:g}"
+    sm = Smoother(chip_smoke.bench_mesh(args.side), params, device="cuda")
+    if args.boundary:
+        sm.enable_boundary_smoothing(*bench_dome_geometry()[1:])
     sm.steps(4)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -100,10 +112,9 @@ def main() -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
     out = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    path = os.path.join(
-        out, f"torch_profile_step_{args.band[0]:g}_{args.band[1]:g}.json")
+    path = os.path.join(out, f"torch_profile_step_{label}.json")
     prof.export_chrome_trace(path)
-    print(f"{args.side}^3, band {args.band}: {len(steps)} iterations in "
+    print(f"{args.side}^3, {label}: {len(steps)} iterations in "
           f"{wall_ms:.3f} ms under the profiler on {smi}; trace {path}")
     summarize(path, len(steps))
     return 0

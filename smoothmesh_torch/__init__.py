@@ -15,11 +15,16 @@ Layout (each module mirrors its ``smoothmesh_tpu`` counterpart):
   - ``params``    smoothing options and their derived defaults
   - ``quality``   the mesh stats behind the derived defaults
   - ``device``    topology staging as torch tensors
-  - ``geometry``  face/cell geometry (K1, K2)
-  - ``ops``       the predictor (K3) and the freeze constraints (K4)
+  - ``geometry``  face/cell geometry (K1, K2), boundary point normals
+  - ``ops``       the predictor (K3), the freeze constraints (K4), the
+                  face angle (K5, K6) and the ray cast (K8)
+  - ``layers``    boundary-layer maps (host) and blending (device)
+  - ``boundary``  boundary classification (host) and boundary point
+                  projection (device)
   - ``kernels``   building, loading and launching the CUDA kernels
   - ``driver``    the iteration loop, convergence and writes
   - ``convert``   building the driver's state from the JAX package's
+  - ``testcases`` the boundary testcases' meshes and target geometry
 """
 
 __version__ = "0.1.0"

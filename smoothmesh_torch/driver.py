@@ -1,19 +1,28 @@
 """The smoothing driver: one iteration + the convergence loop.
 
 Reimplements the reference's main iteration (src/smoothMesh.C:2257-2437)
-for one device, internal points, no boundary-layer treatment and no
-boundary smoothing:
+for one device:
 
-  face geometry (K1) -> cell centres (K2) -> predictor (K3: centroidal,
-  aspect-ratio blend, step limiter) -> edge-shortening / edge-angle
-  freezes (K4) -> current face angles per point (K5, K6) -> the
-  face-angle fixed point -> revert frozen and boundary points -> residual
+  face geometry (K1) -> [boundary point normals] -> cell centres (K2)
+  -> predictor (K3: centroidal, aspect-ratio blend, step limiter)
+  -> [layer blend -> step limit] -> [boundary projection, with the ray
+  cast (K8) -> prismatic projection -> step limit] -> edge-shortening /
+  edge-angle freezes (K4) -> current face angles per point (K5, K6) ->
+  the face-angle fixed point -> revert frozen and non-smoothed boundary
+  points -> residual
+
+The bracketed stages run with boundary-layer blending (``layer_patches``)
+and with boundary point smoothing (:meth:`Smoother.enable_boundary_
+smoothing`), in the order of the JAX driver's tile-engine branch
+(``smoothmesh_tpu/driver.py:114-249``): the normals reuse K1's face
+area vectors, and the boundary pass's freeze mask goes into K4.
 
 Coordinates are internally normalized (centred, scaled so the minimum
 edge length is 1) so float32 stays accurate at any absolute mesh scale;
 length-valued parameters are scaled along.  Each iteration reads back
-two scalars (the residual and the frozen count), exactly the
-information the reference prints.
+two scalars (the residual and the frozen count), and with boundary
+smoothing a third (the ray-miss count): the information the reference
+prints.
 
 The face-angle step is the JAX driver's tile-engine branch
 (``smoothmesh_tpu/driver.py:321-327``) on every device: the fixed point
@@ -22,9 +31,7 @@ the CPU) and its 1e-5 u guard against last-bit noise.  Not its XLA
 branch (``:246-249``, angle space, no guard): that one compares the
 current and the substituted angles from two arithmetic paths, so where
 a substitution leaves an edge unchanged its decision follows last-bit
-noise (see tests/test_torch_driver.py).  Boundary-layer blending and
-boundary smoothing raise ``NotImplementedError`` naming the slice of
-the port that brings them.
+noise (see tests/test_torch_driver.py).
 """
 
 from __future__ import annotations
@@ -36,12 +43,14 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from smoothmesh_torch import boundary as bps
 from smoothmesh_torch import geometry as geo
+from smoothmesh_torch import layers as lay
 from smoothmesh_torch.device import resolve_device, to_device
 from smoothmesh_torch.io.polymesh import PolyMesh
 from smoothmesh_torch.mesh.tiling import MeshOrders, permute_mesh
 from smoothmesh_torch.mesh.topology import MeshTopology, compile_topology
-from smoothmesh_torch.ops import constraints, smoothing
+from smoothmesh_torch.ops import constraints, raycast, smoothing
 from smoothmesh_torch.params import SmoothingParams
 from smoothmesh_torch.quality import mesh_stats
 
@@ -52,6 +61,16 @@ class StepResult:
     residual: float
     n_frozen: int
     wall_ms: float = 0.0
+    n_ray_miss: int = 0
+
+
+RAY_MISS_MSG = (
+    "Did not find surface intersection for {n} smoothing-surface "
+    "point(s) within the maximum search distance — the targetSurfaces "
+    "geometry likely does not cover the mesh boundary (reference "
+    "bPS.C:933-940 aborts here).  Set ray_miss_fatal=False / "
+    "-allowRayMiss to freeze such points in place instead."
+)
 
 
 class Stages(NamedTuple):
@@ -62,21 +81,25 @@ class Stages(NamedTuple):
     predictor: Callable
     freeze_constraints: Callable
     face_angles_per_point: Callable
+    ray_cast: Callable
 
 
 #: The wrappers: plain versions on CPU tensors, kernels on CUDA tensors.
 KERNEL_STAGES = Stages(geo.face_centres_areas, geo.cell_centres_vols,
                        smoothing.predictor, constraints.freeze_constraints,
-                       constraints.face_angles_per_point)
+                       constraints.face_angles_per_point,
+                       raycast.segment_triangle_hits)
 #: The plain PyTorch versions on any device (the card's reference run).
 PLAIN_STAGES = Stages(geo.face_centres_areas_plain,
                       geo.cell_centres_vols_plain,
                       smoothing.predictor_plain,
                       constraints.freeze_constraints_plain,
-                      constraints.face_angles_per_point_plain)
+                      constraints.face_angles_per_point_plain,
+                      raycast.segment_triangle_hits_plain)
 
-#: The device-topology tables one iteration reads (the face-angle
-#: fixed point reads point_edges_side folded into pe_flat).
+#: The device-topology tables one iteration of the default configuration
+#: reads (the face-angle fixed point reads point_edges_side folded into
+#: pe_flat).
 TD_KEYS = frozenset({
     "face_points", "face_mask", "face_npoints", "owner", "cell_faces",
     "cell_faces_mask", "point_cells", "point_cells_mask", "point_points",
@@ -87,30 +110,71 @@ TD_KEYS = frozenset({
     "edge_cell_f1", "point_edges", "point_edges_mask", "pps_signed",
     "pe_flat",
 })
+#: What the boundary point normals add (layers and boundary smoothing);
+#: staged only when one of them is on.
+NORMALS_TD_KEYS = frozenset({"point_faces", "face_is_real_boundary"})
 
 
 def iteration_body(points, td, params: SmoothingParams, scale: float,
-                   stages: Stages = KERNEL_STAGES):
+                   stages: Stages = KERNEL_STAGES, normals=None,
+                   smoothing_surface=None, layer=None, bnd=None):
     """One smoothing iteration (reference src/smoothMesh.C:2257-2437)
-    -> (new points, residual, frozen count), both scalars as tensors.
+    -> (new points, normals, residual, frozen count, ray-miss count),
+    the last three as scalar tensors (the ray-miss count is the constant
+    0 without ``bnd``).
 
-    Length-valued parameters are pre-scaled by the driver's coordinate
-    normalization factor ``scale``.
+    ``normals``: the boundary point normals' state (read and returned
+    updated when ``layer`` or ``bnd`` is given).  ``smoothing_surface``:
+    (N,) bool, the boundary points that may move, or None where none
+    may.  ``layer``: the layer maps (``hops_layer``, ``outer_map``) or
+    None.  ``bnd``: the boundary-smoothing tables or None.  Length-valued
+    parameters are pre-scaled by the driver's coordinate normalization
+    factor ``scale``.
     """
     p = params
     min_edge = p.min_edge_length * scale
     max_step = p.max_step_length * scale
+    internal = td["is_internal_point"]
+    frozen = torch.zeros(points.shape[0], dtype=torch.bool,
+                         device=points.device)
 
     fg = stages.face_geometry(points, td["face_points"], td["face_mask"],
                               td["face_npoints"])
+    if layer is not None or bnd is not None:
+        # stateful normals (reference :2266), from K1's area vectors
+        normals, is_sharp = lay.accumulate_point_normals(normals, fg.areas,
+                                                         td)
     cell_ctrs, _ = stages.cell_centres_vols(
         fg, td["owner"], td["cell_faces"], td["cell_faces_mask"])
     prop, _ = stages.predictor(points, cell_ctrs, td, max_step,
-                               p.rel_step_frac, False)
+                               p.rel_step_frac, bnd is not None)
+
+    if layer is not None:
+        outer = lay.update_neigh_coords(points, layer["outer_map"])
+        prop = lay.blend_with_orthogonal_points(
+            points, prop, td, layer["hops_layer"], normals, outer,
+            p.layer_max_blending_fraction, p.layer_edge_length * scale,
+            p.layer_expansion_ratio, p.min_layers, p.max_layers + 1)
+        prop = smoothing.constrain_max_step_length(points, prop, max_step,
+                                                   p.rel_step_frac)
+
+    n_ray_miss = 0
+    if bnd is not None:
+        # boundary point smoothing (reference :2307-2356)
+        inner = lay.update_neigh_coords(points, bnd["inner_map"])
+        prop, frozen, no_hit = bps.project_boundary_points(
+            points, prop, normals, frozen, bnd, td, is_sharp, fg.centres,
+            ray_cast=stages.ray_cast)
+        n_ray_miss = (no_hit & td["point_valid"]).sum()
+        prop = lay.project_prismatic_boundary_points(
+            prop, bnd, normals, inner, is_sharp,
+            p.internal_smoothing_blending_fraction)
+        prop = smoothing.constrain_max_step_length(points, prop, max_step,
+                                                   p.rel_step_frac)
+
     frozen = stages.freeze_constraints(
         points, prop, td, min_edge, p.total_min_freeze, p.min_angle_rad,
-        p.edge_angle_constraint,
-        torch.zeros(points.shape[0], dtype=torch.bool, device=points.device))
+        p.edge_angle_constraint, frozen)
     if p.face_angle_constraint:
         # as the JAX driver's tile branch (smoothmesh_tpu/driver.py:321-327)
         cur = stages.face_angles_per_point(points, fg.means, cell_ctrs, td)
@@ -118,21 +182,14 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
             points, cell_ctrs, prop, td, p.min_angle_rad, p.max_angle_rad,
             frozen, fc_base=fg.means, cur_minmax=cur, u_space=True)
 
-    # boundary points stay put: no boundary smoothing in this slice
-    revert = frozen | ~td["is_internal_point"]
+    fixed = ~internal
+    if smoothing_surface is not None:
+        fixed = fixed & ~smoothing_surface
+    revert = frozen | fixed
     new_points = torch.where(revert[:, None], points, prop)
     n_frozen = (revert & td["point_valid"]).sum()
     res = smoothing.calculate_residual(points, new_points, max_step)
-    return new_points, res, n_frozen
-
-
-def check_supported(params: SmoothingParams, topo: MeshTopology) -> None:
-    """Raise NotImplementedError for what the port cannot run yet."""
-    if (len(topo.patch_ids_matching(params.layer_patches))
-            and params.layer_max_blending_fraction > 1e-15):
-        raise NotImplementedError(
-            "boundary-layer blending (layer_patches) arrives with slice 4 "
-            "of the PyTorch port")
+    return new_points, normals, res, n_frozen, n_ray_miss
 
 
 class Smoother:
@@ -143,6 +200,8 @@ class Smoother:
     mesh: the polyMesh to smooth (topology fixed, points move).
     params: smoothing options; derived defaults are resolved here from
         the initial mesh stats (reference src/smoothMesh.C:1854-1921).
+        Boundary-layer blending runs when ``layer_patches`` match a
+        patch and ``layer_max_blending_fraction`` is positive.
     dtype: coordinate dtype (default float32; the kernels take
         float32, the plain CPU versions any float dtype).
     topo: a precompiled topology of ``mesh``; without one the mesh is
@@ -163,16 +222,23 @@ class Smoother:
         center = mesh_int.points.mean(axis=0)
         scale = 1.0 / max(stats.min_edge_length, 1e-300)
         self.mesh = mesh
+        self.mesh_internal = mesh_int
+        self.stats = stats
         self._setup(topo, (mesh_int.points - center) * scale,
                     params.resolve(stats.min_edge_length), center, scale,
                     device, dtype, orders)
+        if self._will_layer:
+            self._setup_maps()
+            self.layer = {
+                k: self._tensor(getattr(self.layer_maps, k), torch.int64)
+                for k in ("hops_layer", "outer_map")}
 
     def _setup(self, topo: MeshTopology, points: np.ndarray,
                params: SmoothingParams, center, scale: float, device,
                dtype, orders: Optional[MeshOrders]) -> None:
         """Device state from host state; ``points`` are internal
-        (normalized) coordinates and ``params`` are resolved."""
-        check_supported(params, topo)
+        (normalized) coordinates and ``params`` are resolved.  Layers
+        and boundary smoothing start off (no maps)."""
         device = resolve_device(device)
         dtype = torch.float32 if dtype is None else dtype
         if device.type == "cuda" and dtype != torch.float32:
@@ -184,15 +250,153 @@ class Smoother:
         self._orders = orders
         self._center = np.asarray(center, dtype=np.float64)
         self._scale = float(scale)
-        self.td = to_device(topo, device, TD_KEYS)
-        self.points = torch.tensor(np.asarray(points), dtype=dtype,
-                                   device=device)
+        self._layer_ids = topo.patch_ids_matching(params.layer_patches)
+        self._will_layer = bool(len(self._layer_ids)
+                               and params.layer_max_blending_fraction
+                               > 1e-15)
+        keys = TD_KEYS | (NORMALS_TD_KEYS if self._will_layer else set())
+        self.td = to_device(topo, device, keys)
+        self.points = self._tensor(points, dtype)
+        # boundary point normals (state), the boundary points that may
+        # move, and the layer and boundary tables: none until enabled
+        self.normals = torch.zeros_like(self.points)
+        self.smoothing_surface = None
+        self.layer_maps = None
+        self.layer = None
+        self.bnd = None
         self._iteration = 0
 
-    def enable_boundary_smoothing(self, *args, **kwargs):
-        raise NotImplementedError(
-            "boundary point smoothing (target surfaces) arrives with "
-            "slice 5 of the PyTorch port")
+    def _tensor(self, a, dtype) -> torch.Tensor:
+        return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def _stage_normals_tables(self) -> None:
+        """Add the tables the boundary point normals read to ``td``."""
+        missing = NORMALS_TD_KEYS - set(self.td)
+        if missing:
+            self.td.update(to_device(self.topo, self.device, missing))
+
+    def _setup_maps(self) -> None:
+        """Hop counts + prismatic maps + propagated normals (reference
+        src/smoothMesh.C:2215-2230), shared by layer treatment and
+        boundary smoothing."""
+        if self.layer_maps is not None:
+            return
+        self._stage_normals_tables()
+        bn, sharp = geo.boundary_point_normals(self.points, self.td)
+        smoothing_ids = self.topo.patch_ids_matching(
+            self.params.smoothing_patches)
+        self.layer_maps = lay.build_layer_maps(
+            self.topo, bn.to("cpu", torch.float64).numpy(),
+            sharp.cpu().numpy(), self._layer_ids, smoothing_ids,
+            self.params.max_layers)
+        self.normals = self._tensor(self.layer_maps.normals_init, self.dtype)
+
+    def transform(self, pts: np.ndarray) -> np.ndarray:
+        """External coordinates -> internal normalized coordinates."""
+        return (np.asarray(pts, dtype=np.float64) - self._center) * \
+            self._scale
+
+    def enable_boundary_smoothing(
+        self, surf_vertices, surf_tris,
+        init_edge_points, init_edges,
+        target_edge_points=None, target_edges=None,
+        checkpoint_corner=None, checkpoint_feature=None,
+    ) -> bps.BoundarySetup:
+        """Enable boundary point smoothing (reference
+        src/smoothMesh.C:2079-2212): classify boundary points against
+        the edge meshes, pack the target-surface triangle soup, resolve
+        edge strings, and let smoothing-surface points move.  Returns
+        the classification (for checkpointing; its arrays are in the
+        internal point order, see :meth:`to_external_point_field`).
+        """
+        if self.mesh_internal is None:
+            raise RuntimeError(
+                "enable_boundary_smoothing needs the mesh: a smoother "
+                "carried across with convert.state_from_jax takes its "
+                "boundary tables as state_from_jax(..., bnd=...)")
+        if target_edge_points is None:
+            target_edge_points, target_edges = init_edge_points, init_edges
+        if self._orders is not None:
+            if checkpoint_corner is not None:
+                checkpoint_corner = np.asarray(
+                    checkpoint_corner)[self._orders.point_old]
+            if checkpoint_feature is not None:
+                checkpoint_feature = np.asarray(
+                    checkpoint_feature)[self._orders.point_old]
+
+        for pts, edges in ((init_edge_points, init_edges),
+                           (target_edge_points, target_edges)):
+            bps.check_edge_mesh_sanity(pts, edges,
+                                       self.stats.min_edge_length,
+                                       self.stats.perimeter)
+
+        self._setup_maps()
+        smoothing_ids = self.topo.patch_ids_matching(
+            self.params.smoothing_patches)
+        setup = bps.classify_boundary_points(
+            self.topo, init_edge_points, init_edges,
+            target_edge_points, target_edges,
+            surf_vertices, surf_tris,
+            self._layer_ids, smoothing_ids,
+            self.mesh_internal.points, self.params.distance_tolerance,
+            checkpoint_corner=checkpoint_corner,
+            checkpoint_feature=checkpoint_feature,
+        )
+        self.boundary_setup = setup
+        t = self.transform
+        internal = self.topo.is_internal_point
+        tep, te = setup.target_edge_points, setup.target_edges
+        self.bnd = self._bnd_tables(dict(
+            is_corner=setup.is_corner,
+            is_feature_edge=setup.is_feature_edge,
+            is_smoothing_surface=setup.is_smoothing_surface,
+            is_connected=setup.is_connected,
+            smoothing_surface=setup.is_smoothing_surface,
+            corner_targets=t(setup.corner_targets),
+            point_strings=setup.point_strings,
+            feat_neigh=setup.feat_neigh,
+            feat_neigh_mask=setup.feat_neigh_mask,
+            edge_a=t(tep[te[:, 0]]),
+            edge_b=t(tep[te[:, 1]]),
+            edge_strings=setup.target_edge_strings,
+            tri_a=t(setup.surf_tri_a),
+            tri_b=t(setup.surf_tri_b),
+            tri_c=t(setup.surf_tri_c),
+            distance_tolerance=setup.distance_tolerance * self._scale,
+            inner_map=self.layer_maps.inner_map,
+            # static compaction sets (the classification is fixed after
+            # set-up): feature points with projection neighbours, and
+            # the free smoothing-surface ray-cast candidates
+            feat_rows=np.where(setup.feat_neigh_mask.any(axis=1))[0],
+            surf_rows=np.where(setup.is_smoothing_surface & ~internal
+                               & ~setup.is_corner
+                               & ~setup.is_feature_edge)[0],
+        ))
+        self.smoothing_surface = self.bnd["smoothing_surface"]
+        return setup
+
+    def _bnd_tables(self, host: dict) -> dict:
+        """The boundary-smoothing tables on the device from host arrays
+        (the JAX package's ``bnd`` dict, with the triangles packed for
+        the ray cast, the compaction rows unpadded, and the rows of the
+        smoothing-surface boundary points, ``smooth_rows``)."""
+        np_dtype = np.float64 if self.dtype == torch.float64 else np.float32
+        host = dict(host, smooth_rows=np.where(
+            np.asarray(host["is_smoothing_surface"])
+            & ~self.topo.is_internal_point)[0])
+        out = {"distance_tolerance": float(host["distance_tolerance"]),
+               "tri_packed": self._tensor(raycast.pack_triangles(
+                   host["tri_a"], host["tri_b"], host["tri_c"], np_dtype),
+                   self.dtype)}
+        for k in ("is_corner", "is_feature_edge", "is_smoothing_surface",
+                  "is_connected", "smoothing_surface", "feat_neigh_mask"):
+            out[k] = self._tensor(host[k], torch.bool)
+        for k in ("corner_targets", "edge_a", "edge_b"):
+            out[k] = self._tensor(host[k], self.dtype)
+        for k in ("point_strings", "feat_neigh", "edge_strings",
+                  "inner_map", "feat_rows", "surf_rows", "smooth_rows"):
+            out[k] = self._tensor(host[k], torch.int64)
+        return out
 
     # -- coordinate transforms ---------------------------------------------
     def denormalize(self, pts=None) -> np.ndarray:
@@ -200,21 +404,38 @@ class Smoother:
         q = (self.points if pts is None else torch.as_tensor(pts))
         q = q.detach().to("cpu", torch.float64).numpy()
         q = q / self._scale + self._center
-        if self._orders is not None:
-            q = q[self._orders.point_new]          # back to original order
-        return q
+        return self.to_external_point_field(q)
+
+    def to_external_point_field(self, arr) -> np.ndarray:
+        """A per-point array from the internal (reordered) point order to
+        the original mesh's."""
+        arr = np.asarray(arr)
+        if self._orders is None:
+            return arr
+        return arr[self._orders.point_new]
 
     # -- the iteration loop ------------------------------------------------
     def step(self) -> StepResult:
+        """One iteration; raises ``RuntimeError`` (and keeps the state)
+        when a ray cast misses under ``ray_miss_fatal``."""
         t0 = time.perf_counter()
-        new_points, res, n_frozen = iteration_body(
-            self.points, self.td, self.params, self._scale)
-        res, n_frozen = torch.stack(
-            [res.double(), n_frozen.double()]).tolist()   # host sync
+        new_points, normals, res, n_frozen, n_miss = iteration_body(
+            self.points, self.td, self.params, self._scale,
+            normals=self.normals, smoothing_surface=self.smoothing_surface,
+            layer=self.layer, bnd=self.bnd)
+        scalars = [res.double(), n_frozen.double()]
+        if self.bnd is not None:
+            scalars.append(n_miss.double())
+        res, n_frozen, *miss = torch.stack(scalars).tolist()  # host sync
+        n_miss = miss[0] if miss else 0
         wall = (time.perf_counter() - t0) * 1e3
+        if n_miss and self.params.ray_miss_fatal:
+            raise RuntimeError(RAY_MISS_MSG.format(n=int(n_miss)))
         self.points = new_points
+        self.normals = normals
         self._iteration += 1
-        return StepResult(self._iteration, res, int(n_frozen), wall)
+        return StepResult(self._iteration, res, int(n_frozen), wall,
+                          int(n_miss))
 
     def steps(self, n: int) -> "list[StepResult]":
         """Run up to ``n`` iterations, stopping after the first one whose
@@ -250,9 +471,11 @@ class Smoother:
             for r in rs:
                 iter_ms.append(r.wall_ms)
                 if log:
+                    miss = (f" nRayMisses={r.n_ray_miss} (frozen)"
+                            if r.n_ray_miss else "")
                     log(f"Smoothing iteration={r.iteration} "
                         f"nFrozenPoints={r.n_frozen} "
-                        f"residual={r.residual:.6g}")
+                        f"residual={r.residual:.6g}{miss}")
             if rs:
                 result = rs[-1]
             done += len(rs)

@@ -168,3 +168,23 @@ def cell_centres(points, td) -> torch.Tensor:
     ctrs, _ = cell_centres_vols(fg, td["owner"], td["cell_faces"],
                                 td["cell_faces_mask"])
     return ctrs
+
+
+def boundary_point_normals(points, td):
+    """Inward area-normalized point normals on real boundary patches
+    -> (normals (N, 3), is_sharp (N,)).
+
+    Reimplements ``calculateBoundaryPointNormals`` (reference
+    src/orthogonalBoundaryBlending.C:141-233): sum of inverted unit face
+    normals of adjacent non-processor / non-empty patch faces; points
+    whose summed normal has magnitude < 0.1 are "sharp edge points" and
+    get a zero normal; otherwise the normal is normalized.  This is the
+    per-iteration update ``layers.accumulate_point_normals`` from a zero
+    field.
+    """
+    # layers imports this module
+    from smoothmesh_torch.layers import accumulate_point_normals
+
+    fg = face_centres_areas(points, td["face_points"], td["face_mask"],
+                            td["face_npoints"])
+    return accumulate_point_normals(torch.zeros_like(points), fg.areas, td)

@@ -14,9 +14,11 @@ the kernel's launch count.
 
 Arithmetic: ``--fmad=false`` keeps ``a*b+c`` as two rounded operations,
 as the plain PyTorch versions compute it, so the kernels agree with
-them to the last bits except for summation order.  All six kernels are
-bound by memory traffic, not by floating-point issue rate, so the
-contraction would buy nothing measurable.
+them to the last bits except for summation order.  K1-K6 are bound by
+memory traffic, not by floating-point issue rate, so the contraction
+would buy them nothing measurable; K8 (the ray cast) is bound by its
+operations, and keeps them unfused so that it equals its plain version
+bit for bit.
 """
 
 from __future__ import annotations
@@ -189,5 +191,10 @@ POINT_FACE_ANGLES = Kernel(
     [P, P, P, I, I, P],
     "smoothmesh_tpu/ops/tiledstep.py:710")
 
+RAYCAST = Kernel(
+    "K8 segment_triangle_hits", "raycast.cu", "smk_raycast",
+    [P, P, P, I, I, F, F, F, F, P, P],
+    "smoothmesh_tpu/ops/raycast.py:101")
+
 ALL = (FACE_GEOMETRY, CELL_CENTRES, PREDICTOR, FREEZE, FACE_ANGLES,
-       POINT_FACE_ANGLES)
+       POINT_FACE_ANGLES, RAYCAST)

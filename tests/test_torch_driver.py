@@ -5,7 +5,15 @@ equal frozen counts at every iteration, and denormalized points to
 1e-9 — with the face angle off, and on at the default 35/160 degree
 band and at 60/120; from the mesh, and from the JAX smoother's state
 carried across.  Plus the relTol stop, the run loop's log lines and
-writes, and the configurations the port refuses.
+writes, and what the port refuses.
+
+Boundary point smoothing (tc7) and boundary smoothing with layers
+(tc5) are held the same way, from the mesh and from the JAX state
+carried across, with equal ray-miss counts too.  Their maximum step is
+pinned above the raw step range: the step limiter jumps where |step|
+equals it, and a second limiter call (after the layer blend or the
+boundary projection) lands every limited point on that knife-edge,
+where last-bit noise flips the branch.
 
 The JAX smoothers with the face angle on are traced with
 ``SMOOTHMESH_FA_SLOT_SCAN=1`` (the JAX fixed point's pair slots as a
@@ -19,14 +27,17 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from smoothmesh_tpu import driver as jax_driver
+from smoothmesh_tpu import testcases as jtc
 from smoothmesh_tpu.driver import Smoother as JaxSmoother
 from smoothmesh_tpu.mesh.blockmesh import hex_block as jax_hex
 from smoothmesh_tpu.mesh.blockmesh import perturb as jax_perturb
 from smoothmesh_tpu.ops import constraints as jcon
 from smoothmesh_tpu.params import SmoothingParams as JaxParams
+from smoothmesh_torch import testcases as ttc
 from smoothmesh_torch.convert import state_from_jax
 from smoothmesh_torch.driver import Smoother
 from smoothmesh_torch.mesh.blockmesh import hex_block, perturb
@@ -36,6 +47,10 @@ ITERS = 6
 #: face-angle bands (degrees) of the face-angle-on runs
 BANDS = {"default": {}, "60-120": dict(min_angle=60.0, max_angle=120.0)}
 CARRY_AT = 2     # iterations before the state is carried across
+#: boundary smoothing alone (tc7), and with layers (tc5)
+BND_CASES = ["tc7", "tc5"]
+#: the boundary runs' max step: above their raw step range (see above)
+BND_MAX_STEP = 0.25
 
 
 def _mesh():
@@ -71,6 +86,22 @@ def _tile_form(points, cell_ctrs, proposed, td, min_angle_rad,
         frozen, fc_base=fc, cur_minmax=u, u_space=True, **kw)
 
 
+def _jax_state(sj):
+    """What state_from_jax takes, read off a JAX smoother."""
+    def host(d):
+        return None if d is None else {
+            k: v if np.isscalar(v) else np.asarray(v) for k, v in d.items()}
+
+    return dict(
+        points=np.asarray(sj.points),
+        topo_arrays={f.name: getattr(sj.topo, f.name)
+                     for f in dataclasses.fields(sj.topo)},
+        params=dataclasses.asdict(sj.params), center=sj._center,
+        scale=sj._scale, normals=np.asarray(sj.normals),
+        smoothing_surface=np.asarray(sj.smoothing_surface),
+        layer=host(sj.layer), bnd=host(sj.bnd))
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_face_angle_run(band):
     """The JAX smoother with the face angle on, ITERS iterations ->
@@ -83,12 +114,38 @@ def _jax_face_angle_run(band):
                            centroidal_iters=ITERS, rel_tol=0.0,
                            **BANDS[band])
         results = sj.steps(CARRY_AT)
-        state = dict(
-            points=np.asarray(sj.points),
-            topo_arrays={f.name: getattr(sj.topo, f.name)
-                         for f in dataclasses.fields(sj.topo)},
-            params=dataclasses.asdict(sj.params), center=sj._center,
-            scale=sj._scale, denormalized=sj.denormalize())
+        state = _jax_state(sj)
+        state["denormalized"] = sj.denormalize()
+        results += sj.steps(ITERS - CARRY_AT)
+    return results, state, sj.denormalize()
+
+
+def _bnd_case(testcases, name):
+    """A boundary testcase and its parameters for ITERS iterations."""
+    tc = testcases.ALL[name]()
+    return tc, dataclasses.replace(
+        tc.params, centroidal_iters=ITERS, rel_tol=0.0,
+        max_step_length=BND_MAX_STEP)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_boundary_run(name):
+    """The JAX smoother with boundary smoothing on, ITERS iterations ->
+    (results, its state after CARRY_AT iterations, final points)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SMOOTHMESH_FA_SLOT_SCAN", "1")
+        mp.setattr(jax_driver, "restrict_face_angle_deterioration",
+                   _tile_form)
+        # its set-up's normals, jitted (op by op they take seconds)
+        mp.setattr(jax_driver.geo, "boundary_point_normals",
+                   jax.jit(jax_driver.geo.boundary_point_normals))
+        tc, params = _bnd_case(jtc, name)
+        sj = JaxSmoother(tc.mesh, params, dtype=np.float64,
+                         use_tile_engine=False)
+        sj.enable_boundary_smoothing(*tc.geometry)
+        results = sj.steps(CARRY_AT)
+        state = _jax_state(sj)
+        state["denormalized"] = sj.denormalize()
         results += sj.steps(ITERS - CARRY_AT)
     return results, state, sj.denormalize()
 
@@ -99,6 +156,7 @@ def _assert_same_run(got, want):
         assert g.iteration == w.iteration
         assert g.residual == pytest.approx(w.residual, rel=1e-9)
         assert g.n_frozen == w.n_frozen
+        assert g.n_ray_miss == w.n_ray_miss
 
 
 def test_smoother_matches_jax_f64():
@@ -173,32 +231,97 @@ def test_run_logs_and_writes():
     assert writes[-1][1].shape == _mesh().points.shape
 
 
+@pytest.mark.parametrize("name", BND_CASES)
+def test_smoother_boundary_matches_jax_f64(name):
+    want, _, want_pts = _jax_boundary_run(name)
+    tc, params = _bnd_case(ttc, name)
+    st = Smoother(tc.mesh, params, device="cpu", dtype=torch.float64)
+    st.enable_boundary_smoothing(*tc.geometry)
+    assert (st.layer is not None) == (name == "tc5")
+    got = st.steps(ITERS)
+    _assert_same_run(got, want)
+    assert all(r.residual < 1.0 for r in got)   # no step at the limiter
+    np.testing.assert_allclose(st.denormalize(), want_pts, rtol=0,
+                               atol=1e-9)
+    # the top points move towards the dome above them
+    top = tc.mesh.points[:, 2] > 1 - 1e-9
+    assert (st.denormalize() - tc.mesh.points)[top, 2].max() > 0.05
+
+
+@pytest.mark.parametrize("name", BND_CASES)
+def test_state_from_jax_boundary_matches(name):
+    want, state, want_pts = _jax_boundary_run(name)
+    kw = {k: state[k] for k in ("normals", "smoothing_surface", "layer",
+                                "bnd")}
+    st = state_from_jax(state["points"], state["topo_arrays"],
+                        state["params"], state["center"], state["scale"],
+                        device="cpu", dtype=torch.float64, **kw)
+    assert st.bnd is not None and (st.layer is not None) == (name == "tc5")
+    np.testing.assert_array_equal(st.denormalize(), state["denormalized"])
+    got = st.steps(ITERS - CARRY_AT)
+    assert len(got) == ITERS - CARRY_AT
+    for g, w in zip(got, want[CARRY_AT:]):
+        assert g.residual == pytest.approx(w.residual, rel=1e-9)
+        assert g.n_frozen == w.n_frozen
+        assert g.n_ray_miss == w.n_ray_miss
+    np.testing.assert_allclose(st.denormalize(), want_pts, rtol=0,
+                               atol=1e-9)
+
+
 def test_unsupported_configurations_raise():
-    mesh = hex_block(n=(4, 4, 4), patches={"top": ["zmax"],
-                                           "rest": ["xmin", "xmax", "ymin",
-                                                    "ymax", "zmin"]})
+    """Layers and boundary smoothing run; what raises is a target
+    surface that does not cover the smoothing surface, under
+    ray_miss_fatal (the reference aborts there); without it the missed
+    points stay frozen."""
+    mesh = hex_block(n=(4, 4, 4), patches=ttc.TOP_PATCHES)
     # the reference's defaults (face angle on) construct and step
     st = Smoother(mesh, SmoothingParams(), device="cpu")
     assert st.params.face_angle_constraint
     r = st.step()
     assert r.iteration == 1 and np.isfinite(r.residual)
-    with pytest.raises(NotImplementedError, match="layer"):
-        Smoother(mesh, SmoothingParams(layer_patches=("top",)),
-                 device="cpu")
-    st = Smoother(mesh, SmoothingParams(layer_patches=("nomatch",)),
+    # so do layers
+    st = Smoother(mesh, SmoothingParams(layer_patches=("top",)),
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="boundary"):
-        st.enable_boundary_smoothing(None, None, None, None)
+    assert st.layer is not None
+    assert np.isfinite(st.step().residual)
+    # a target surface over x <= 0.5 only: the rays of the top points
+    # at x = 0.5 and 0.75 miss it
+    _, V, T, bpts, bedges = ttc.dome_geometry()
+    half = T[(V[T][..., 0] <= 0.5).all(axis=1)]
+    for fatal in (True, False):
+        st = Smoother(mesh, SmoothingParams(smoothing_patches=("top",),
+                                            ray_miss_fatal=fatal),
+                      device="cpu", dtype=torch.float64)
+        st.enable_boundary_smoothing(V, half, bpts, bedges)
+        before = st.denormalize()
+        if fatal:
+            with pytest.raises(RuntimeError, match="surface intersection"):
+                st.step()
+            np.testing.assert_array_equal(st.denormalize(), before)
+            continue
+        r = st.step()
+        after = st.denormalize()
+        top = (before[:, 2] > 1 - 1e-9) & (before[:, :2] > 0.1).all(1) \
+            & (before[:, :2] < 0.9).all(1)
+        missed = top & (before[:, 0] > 0.45)
+        assert r.n_ray_miss == missed.sum() == 6
+        np.testing.assert_array_equal(after[missed], before[missed])
+        assert (after[top & ~missed, 2] > 1.0).all()   # snapped up
 
 
 def test_td_keys_exact():
     """driver.TD_KEYS is exactly what one iteration of the default
-    configuration reads: nothing staged unread, nothing read unstaged."""
+    configuration reads, and TD_KEYS | NORMALS_TD_KEYS what one of the
+    boundary path (layers + boundary smoothing) reads: nothing staged
+    unread, nothing read unstaged."""
     from smoothmesh_torch.device import to_device
-    from smoothmesh_torch.driver import TD_KEYS, iteration_body
+    from smoothmesh_torch.driver import (NORMALS_TD_KEYS, TD_KEYS,
+                                         iteration_body)
 
     class Recording(dict):
-        used = set()
+        def __init__(self, *a):
+            super().__init__(*a)
+            self.used = set()
 
         def __getitem__(self, k):
             self.used.add(k)
@@ -210,3 +333,72 @@ def test_td_keys_exact():
     td = Recording(to_device(st.topo, "cpu"))
     iteration_body(st.points, td, st.params, st._scale)
     assert td.used == TD_KEYS
+
+    tc, params = _bnd_case(ttc, "tc5")
+    params = dataclasses.replace(params, min_angle=80.0, max_angle=100.0)
+    st = Smoother(tc.mesh, params, device="cpu", dtype=torch.float64)
+    assert set(st.td) == TD_KEYS | NORMALS_TD_KEYS
+    st.enable_boundary_smoothing(*tc.geometry)
+    assert set(st.td) == TD_KEYS | NORMALS_TD_KEYS
+    td = Recording(to_device(st.topo, "cpu"))
+    iteration_body(st.points, td, st.params, st._scale,
+                   normals=st.normals,
+                   smoothing_surface=st.smoothing_surface, layer=st.layer,
+                   bnd=st.bnd)
+    assert td.used == TD_KEYS | NORMALS_TD_KEYS
+
+
+def test_default_path_has_no_boundary_work():
+    """Without layers or boundary smoothing an iteration runs no
+    boundary stage: no smoothing-surface mask, no normals update, the
+    ray-miss count the constant 0, and only the default tables
+    staged."""
+    from smoothmesh_torch.driver import TD_KEYS, iteration_body
+
+    st = _smoother(face_angle_constraint=True)
+    assert st.smoothing_surface is None and st.layer is None
+    assert st.bnd is None and set(st.td) == TD_KEYS
+    out = iteration_body(st.points, st.td, st.params, st._scale)
+    assert out[1] is None and out[4] == 0 and isinstance(out[4], int)
+    r = st.step()
+    assert r.n_ray_miss == 0 and not st.normals.any()
+    np.testing.assert_array_equal(st.points.numpy(), out[0].numpy())
+
+
+def _carried(**params):
+    """state_from_jax's arguments for the tc5 mesh in its own order,
+    read off the port's host objects (no JAX smoother needed)."""
+    from smoothmesh_torch.mesh.topology import compile_topology
+    from smoothmesh_torch.quality import mesh_stats
+
+    tc = ttc.ALL["tc5"]()
+    topo = compile_topology(tc.mesh)
+    stats = mesh_stats(tc.mesh.points, topo.edges)
+    resolved = dataclasses.replace(tc.params, **params).resolve(
+        stats.min_edge_length)
+    center = tc.mesh.points.mean(axis=0)
+    scale = 1.0 / stats.min_edge_length
+    return tc, dict(
+        points=(tc.mesh.points - center) * scale,
+        topo_arrays={f.name: getattr(topo, f.name)
+                     for f in dataclasses.fields(topo)},
+        params=dataclasses.asdict(resolved), center=center, scale=scale,
+        device="cpu", dtype=torch.float64)
+
+
+@pytest.mark.parametrize("missing", ["layer", "mesh"])
+def test_state_from_jax_refuses_what_it_cannot_carry(missing):
+    """A carried smoother whose layer patches match but that gets no
+    layer maps raises, and so does enable_boundary_smoothing on carried
+    state (it has no mesh to classify): each with a message that says
+    what to pass instead of failing later."""
+    if missing == "layer":
+        _, kw = _carried()
+        with pytest.raises(ValueError, match="layer="):
+            state_from_jax(**kw)
+        return
+    tc, kw = _carried(layer_patches=())
+    sm = state_from_jax(**kw)
+    assert sm.layer is None and sm.bnd is None
+    with pytest.raises(RuntimeError, match="bnd="):
+        sm.enable_boundary_smoothing(*tc.geometry)
