@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch port (smoothmesh_torch) on one CUDA card.
 
 Phases, each fatal on failure:
-  1. the card's name and power limit; build the CUDA kernels (K1-K6 and
-     K8, one nvcc per source, all at once) and print the build time;
+  1. the card's name and power limit; build the CUDA kernels (K1-K8,
+     one nvcc per source, all at once) and print the build time;
   2. the 128^3 graded, perturbed hex of bench.py (2,146,689 points),
      with the patches of its boundary mode ("top" = zmax, "rest" = the
      other five), and a Smoother with the default parameters (face
@@ -18,7 +18,7 @@ Phases, each fatal on failure:
      from their plain versions: more than 0 points frozen, at most
      1e-4 * N masks differing; its frozen count, sweeps and time;
   4. the default path: Smoother(...).steps(32) with the defaults, every
-     one of K1-K6 launched once per iteration and K8 never, finite
+     one of K1-K6 launched once per iteration and K7, K8 never, finite
      residuals, 0 <= nFrozen <= N and positive cell volumes at the end;
   5. the boundary path on the same mesh and compiled topology, in
      bench.py's boundary configuration (layers and boundary smoothing
@@ -29,8 +29,8 @@ Phases, each fatal on failure:
      triangles (not a multiple of the tile), K3 with boundary points
      moving and K4 with the boundary pass's incoming freeze mask against
      theirs, and the times of the plain-PyTorch boundary stages; then
-     Smoother.steps(32) with every kernel (K8 too) launched once per
-     iteration, the top points' largest distance to the dome falling,
+     Smoother.steps(32) with every kernel but K7 (K8 too) launched once
+     per iteration, the top points' largest distance to the dome falling,
      and positive cell volumes;
   6. a 32^3 mesh of the same recipe for 8 iterations through the kernels
      and through the plain versions on the card, with the face angle
@@ -40,7 +40,28 @@ Phases, each fatal on failure:
      frozen counts within 10% + 10, equal ray-miss counts; in the
      boundary configuration also every residual below 1 and the points
      within 1e-3 at the end);
-  7. one JSON line of the kernels, then the last line
+  3b. K7 (the table gather) against its plain version at the two 128^3
+     shapes, point_cells (C = 3) and cell_faces (C = 4), bit-equal over
+     the whole output, masked slots included; its time, its bytes bound
+     and the time of torch.index_select + the mask's where;
+  4b. the quality report (Smoother.quality()) of the default path's
+     smoothed points, once through the kernels (K1, K2, K7) and once
+     through their plain versions on the card: integer keys equal,
+     lengths and volumes within 1e-5 relative, angles within 1e-3
+     degrees, the aspect ratio within 1e-4 relative, the skewness and
+     the cell openness (near 0, float32 residues) within 1e-4 and 1e-5
+     absolute; its time;
+  7. the port's CLI (smoothmesh_torch.cli.main, in-process) on the 128^3
+     bench mesh written as a binary OpenFOAM case in a temporary
+     directory, with the k = 64 dome as targetSurfaces.obj and its
+     border ring as initEdges.obj: 8 iterations with boundary smoothing
+     and layers on "top", min angle 15, ray misses frozen, -checkMesh,
+     binary output.  Exit code 0, boundary smoothing enabled, no
+     negative volume in the report, the written time directory reads
+     back with every point, and every kernel (K1-K8) launched during
+     the call; the wall time split into read, set-up (topology compile,
+     upload, classification), smoothing, report and write;
+  8. one JSON line of the kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without
@@ -51,12 +72,15 @@ Run from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -82,6 +106,16 @@ TOP_PATCHES = {"top": ["zmax"],
 #: fp32 operations of one ray-triangle test in K8's body: 27 multiplies,
 #: 18 adds and subtracts, 1 division, 8 comparisons, an abs and a select
 RAY_TEST_OPS = 56
+#: the quality report's tolerances (float32, kernels against plain)
+Q_REL_TOL = 1e-5              # lengths and volumes, relative
+Q_DEG_TOL = 1e-3              # angles, degrees
+Q_ASPECT_TOL = 1e-4           # aspect ratio, relative
+#: skewness and cell openness, absolute: both are near 0 on this mesh
+#: and carry the float32 error of a centre or an area sum, ~1e-7 of the
+#: ~200-unit normalized coordinates over ~1-unit cells
+Q_SKEW_TOL = 1e-4
+Q_OPEN_TOL = 1e-5
+CLI_ITERS = 8
 #: the device tables that the face angle adds (K5, K6, the fixed point)
 FACE_ANGLE_KEYS = ("edges", "edge_faces", "edge_cells", "edge_cells_mask",
                    "edge_cell_f0", "edge_cell_f1", "point_edges",
@@ -356,7 +390,8 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
     launches = {k: k.launches for k in kernels.ALL}
     require(len(steps) == MAIN_ITERS, f"{len(steps)} iterations ran")
     for k, n in launches.items():
-        require(n == MAIN_ITERS, f"{k.name} launched {n} times in "
+        want_n = 0 if k is kernels.TABLE_GATHER else MAIN_ITERS
+        require(n == want_n, f"{k.name} launched {n} times in "
                 f"{MAIN_ITERS} iterations of the boundary path")
     for r in steps:
         require(math.isfinite(r.residual), f"residual {r.residual}")
@@ -394,6 +429,255 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         bytes=work[0], ops=work[1], rays_differing=n_differ,
         random_soup_rays_differing=r_differ), launches=launches)
+
+def gather_phase(td, cell_ctrs, face_geo, smi: str) -> dict:
+    """Phase 3b: K7 against its plain version at the two 128^3 shapes ->
+    its record (the cell_faces shape, the -checkMesh path's, first)."""
+    from smoothmesh_torch import geometry as geo
+    from smoothmesh_torch import kernels
+    from smoothmesh_torch.ops import gather
+
+    packed = torch.cat([face_geo.areas, geo.norm3(face_geo.areas)[:, None]],
+                       1).contiguous()
+    shapes = (("cell_faces", packed, td["cell_faces"], td["cell_faces_mask"]),
+              ("point_cells", cell_ctrs.contiguous(), td["point_cells"],
+               td["point_cells_mask"]))
+    rec = {}
+    for name, x, table, mask in shapes:
+        n, w = table.shape
+        c = x.shape[1]
+        got = gather.table_gather(x, table, mask)
+        want = gather.table_gather_plain(x, table, mask)
+        torch.cuda.synchronize()
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        err = float((got - want).abs().max())
+        require(differ == 0, f"K7 at {name}: {differ} of {got.numel()} "
+                "values differ from the plain version (bits)")
+        n_masked = int((~mask).sum())
+        require(bool((got[~mask] == 0).all()), f"K7 at {name}: a masked "
+                "slot is not 0")
+        del got, want
+        flat = table.flatten()
+
+        def library():
+            g = torch.index_select(x, 0, flat).view(n, w, c)
+            return torch.where(mask[..., None], g, 0.0)
+
+        lib = library()
+        require(bool(torch.equal(lib, gather.table_gather_plain(x, table,
+                                                                mask))),
+                f"index_select at {name} differs from the plain version")
+        del lib
+        ms = device_ms(lambda: gather.table_gather(x, table, mask), 20)
+        plain_ms = device_ms(lambda: gather.table_gather_plain(x, table,
+                                                               mask), 5)
+        lib_ms = device_ms(library, 20)
+        n_bytes = nbytes(x, table, mask) + n * w * c * 4
+        b_ms, b_by = bound(n_bytes, 0)
+        print(f"K7 table_gather at {MAIN_SIDE}^3, {name} ({n} x {w} slots, "
+              f"C = {c}, {n_masked} masked): bit-equal to its plain "
+              f"version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"index_select + where {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}, {n_bytes / 1e6:.1f} MB) on {smi}", flush=True)
+        vals = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                    bytes=n_bytes, bits_differing=differ)
+        if not rec:
+            rec = dict(name=kernels.TABLE_GATHER.name, route="cuda",
+                       source="smoothmesh_torch/csrc/"
+                       f"{kernels.TABLE_GATHER.source}",
+                       replaces=kernels.TABLE_GATHER.replaces, shape=name,
+                       **vals)
+        else:
+            rec.update({f"{name}_{k}": v for k, v in vals.items()})
+    return rec
+
+
+@contextlib.contextmanager
+def plain_quality():
+    """The quality report through the plain versions of K1, K2 and K7
+    (on whatever device its inputs lie)."""
+    import types
+
+    from smoothmesh_torch import geometry as geo
+    from smoothmesh_torch import quality
+    from smoothmesh_torch.ops import gather
+
+    saved = quality.geo, quality.table_gather
+    quality.geo = types.SimpleNamespace(
+        face_centres_areas=geo.face_centres_areas_plain,
+        cell_centres_vols=geo.cell_centres_vols_plain,
+        norm3=geo.norm3, dot3=geo.dot3)
+    quality.table_gather = gather.table_gather_plain
+    try:
+        yield
+    finally:
+        quality.geo, quality.table_gather = saved
+
+
+def quality_phase(sm, smi: str) -> dict:
+    """Phase 4b: Smoother.quality() through the kernels and through the
+    plain versions on the card -> the kernels' report and its time."""
+    from smoothmesh_torch import kernels
+
+    sm.quality()                               # stages its tables
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rep_k = sm.quality()
+    torch.cuda.synchronize()
+    q_ms = (time.perf_counter() - t0) * 1e3
+    launched = {k.name: k.launches for k in kernels.ALL if k.launches}
+    with plain_quality():
+        t0 = time.perf_counter()
+        rep_p = sm.quality()
+        torch.cuda.synchronize()
+        qp_ms = (time.perf_counter() - t0) * 1e3
+    print(f"quality report at {MAIN_SIDE}^3 (the default path's smoothed "
+          f"points): {q_ms:.1f} ms through the kernels (launches "
+          f"{launched}), {qp_ms:.1f} ms through the plain versions "
+          f"(host clock, synchronized) on {smi}", flush=True)
+    require(set(launched) == {kernels.FACE_GEOMETRY.name,
+                              kernels.CELL_CENTRES.name,
+                              kernels.TABLE_GATHER.name},
+            f"the report launched {launched}")
+    bad = []
+    for k, want in rep_p.items():
+        got = rep_k[k]
+        if isinstance(want, int):
+            ok, tol = got == want, "equal"
+        elif k.endswith("_deg"):
+            ok, tol = abs(got - want) <= Q_DEG_TOL, f"{Q_DEG_TOL} deg"
+        elif k == "max_cell_openness":
+            ok, tol = abs(got - want) <= Q_OPEN_TOL, f"{Q_OPEN_TOL} abs"
+        elif k == "max_skewness":
+            ok, tol = abs(got - want) <= Q_SKEW_TOL, f"{Q_SKEW_TOL} abs"
+        elif k == "max_aspect_ratio":
+            ok = abs(got - want) <= Q_ASPECT_TOL * abs(want)
+            tol = f"{Q_ASPECT_TOL} rel"
+        else:
+            ok = abs(got - want) <= Q_REL_TOL * abs(want)
+            tol = f"{Q_REL_TOL} rel"
+        print(f"    {k:22s} kernels {got!r:24} plain {want!r:24} ({tol})")
+        if not ok:
+            bad.append(k)
+    require(not bad, f"quality report: kernels and plain versions differ "
+            f"in {bad}")
+    require(rep_k["n_negative_volumes"] == 0, "negative volumes")
+    return dict(report=rep_k, ms=q_ms, plain_ms=qp_ms)
+
+
+def write_obj(path: str, verts, tris=None, edges=None) -> None:
+    with open(path, "w") as f:
+        f.writelines("v %.17g %.17g %.17g\n" % tuple(v) for v in verts)
+        if tris is not None:
+            f.writelines("f %d %d %d\n" % tuple(t) for t in tris + 1)
+        if edges is not None:
+            f.writelines("l %d %d\n" % tuple(e) for e in edges + 1)
+
+
+@contextlib.contextmanager
+def timed(timers: dict, cls, name: str, key: str, out=None):
+    """Add the wall time of every call of ``cls.name`` to timers[key]
+    (synchronizing the card after it); keep its result in ``out``."""
+    orig = getattr(cls, name)
+
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            res = orig(*args, **kw)
+            torch.cuda.synchronize()
+            if out is not None:
+                out.append(res)
+            return res
+        finally:
+            timers[key] = timers.get(key, 0.0) + time.perf_counter() - t0
+
+    setattr(cls, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
+
+
+def cli_phase(mesh, smi: str) -> dict:
+    """Phase 7: the port's CLI on the 128^3 bench mesh as a binary case,
+    with boundary smoothing, layers and -checkMesh -> launch counts."""
+    from smoothmesh_torch import cli, kernels
+    from smoothmesh_torch.driver import Smoother
+    from smoothmesh_torch.io.case import FoamCase
+    from smoothmesh_torch.io.polymesh import write_polymesh
+    from smoothmesh_torch.testcases import bench_dome_geometry
+
+    _, V, T, bpts, bedges = bench_dome_geometry()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_case_") as root:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(root, "system"))
+        with open(os.path.join(root, "system", "controlDict"), "w") as f:
+            f.write("deltaT 1;\n")
+        write_polymesh(os.path.join(root, "constant", "polyMesh"), mesh,
+                       binary=True)
+        gdir = os.path.join(root, "constant", "geometry")
+        os.makedirs(gdir)
+        write_obj(os.path.join(gdir, "targetSurfaces.obj"), V, tris=T)
+        write_obj(os.path.join(gdir, "initEdges.obj"), bpts, edges=bedges)
+        t_case = time.perf_counter() - t0
+        args = ["-case", root, "-centroidalIters", str(CLI_ITERS),
+                "-checkMesh", "-writeFormat", "binary",
+                "-smoothingPatches", "top", "-layerPatches", "top",
+                "-minAngle", "15", "-allowRayMiss"]
+        print(f"CLI at {MAIN_SIDE}^3: case written (binary) in {t_case:.1f}"
+              f" s; smoothmesh_torch.cli.main({' '.join(args[2:])})",
+              flush=True)
+        timers, reports = {}, []
+        out = io.StringIO()
+        kernels.reset_launches()
+        with contextlib.ExitStack() as stack:
+            for cls, name, key, keep in (
+                    (FoamCase, "read_mesh", "read", None),
+                    (Smoother, "__init__", "set-up", None),
+                    (Smoother, "enable_boundary_smoothing", "set-up", None),
+                    (Smoother, "run", "run", None),
+                    (FoamCase, "write_mesh", "write", None),
+                    (FoamCase, "write_label_io_list", "write", None),
+                    (Smoother, "quality", "report", reports)):
+                stack.enter_context(timed(timers, cls, name, key, keep))
+            stack.enter_context(contextlib.redirect_stdout(out))
+            t0 = time.perf_counter()
+            rc = cli.main(args)
+            t_cli = time.perf_counter() - t0
+        launches = {k: k.launches for k in kernels.ALL}
+        text = out.getvalue()
+        lines = text.splitlines()
+        keep = [s for s in lines if not s.startswith("Smoothing iteration=")]
+        print("\n".join("  | " + s for s in keep), flush=True)
+        require(rc == 0, f"the CLI exited with {rc}")
+        require("Enabled boundary point smoothing" in text,
+                "the CLI did not enable boundary smoothing")
+        require(len(reports) == 1 and reports[0]["n_negative_volumes"] == 0,
+                f"the CLI's report: {reports}")
+        require(f"Smoothing iteration={CLI_ITERS} " in text,
+                f"the CLI did not run {CLI_ITERS} iterations")
+        for k, n in launches.items():
+            require(n >= 1, f"{k.name} was not launched during the CLI run")
+        case = FoamCase(root)
+        require(case.time_dirs() == [float(CLI_ITERS)],
+                f"time directories {case.time_dirs()}")
+        back = case.read_mesh(float(CLI_ITERS)).points
+        require(back.shape == (mesh.n_points, 3)
+                and bool(np.isfinite(back).all())
+                and float(np.abs(back - mesh.points).max()) > 0,
+                f"the written points read back as {back.shape}")
+    split = dict(read=timers["read"], setup=timers["set-up"],
+                 smoothing=timers["run"] - timers["write"],
+                 report=timers["report"], write=timers["write"])
+    print(f"CLI wall time {t_cli:.2f} s on {smi}: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in split.items())
+          + f"; {sum(split.values()):.2f} s in these parts; launches "
+          + ", ".join(f"{k.name.split()[0]} {n}" for k, n in
+                      launches.items()), flush=True)
+    return dict(launches=launches, wall_s=t_cli, split_s=split,
+                report=reports[0])
 
 
 def main() -> int:
@@ -584,6 +868,7 @@ def main() -> int:
             library_ms=None, bytes=work[0], ops=work[1], **extra)
         print(f"{k.name}: {msg}; kernel {ms:.4f} ms, plain {plain_ms:.4f}"
               f" ms, bound {b_ms:.4f} ms ({b_by}) on {kind}", flush=True)
+    results[kernels.TABLE_GATHER] = gather_phase(td, cc_p, fg_p, smi)
 
     # the face-angle fixed point (plain PyTorch, as in the JAX package)
     # under a band that bites, with the current angles from K5/K6 (the
@@ -632,7 +917,8 @@ def main() -> int:
     launches = {k: k.launches for k in kernels.ALL}
     require(len(steps) == MAIN_ITERS, f"{len(steps)} iterations ran")
     for k, n in launches.items():
-        want_n = 0 if k is kernels.RAYCAST else MAIN_ITERS
+        want_n = (0 if k in (kernels.RAYCAST, kernels.TABLE_GATHER)
+                  else MAIN_ITERS)
         require(n == want_n, f"{k.name} launched {n} times in "
                 f"{MAIN_ITERS} iterations of the default path")
     for r in steps:
@@ -654,8 +940,10 @@ def main() -> int:
           f"{N / (iter_ms / 1e3):,.0f} point-updates/s on {smi}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB; min cell volume {vmin:.4g} (normalized units)", flush=True)
+    del fg, vol
+    quality = quality_phase(sm, smi)
     mesh_int = sm.mesh_internal
-    del sm, td, pts, fg, vol
+    del sm, td, pts
 
     # -- 5. the boundary path on the same mesh and topology -------------------
     bnd = boundary_path(topo, mesh_int, smi)
@@ -725,12 +1013,22 @@ def main() -> int:
           f"{rk[-1].n_ray_miss} vs {nm_p}; largest point difference at the "
           f"end {moved:.3g} < {BND_POINT_TOL}, normalized units)", flush=True)
 
-    # -- 7. the record ----------------------------------------------------
+    # -- 7. the CLI at full size ------------------------------------------
+    del small, sk, pts_p, nrm_p
+    torch.cuda.empty_cache()
+    cli = cli_phase(mesh, smi)
+
+    # -- 8. the record ----------------------------------------------------
+    main_path = {kernels.RAYCAST: bnd["launches"],
+                 kernels.TABLE_GATHER: cli["launches"]}
     for k in results:
-        results[k]["launches"] = (bnd["launches"][k] if k is kernels.RAYCAST
-                                  else launches[k])
+        results[k]["launches"] = main_path.get(k, launches)[k]
         results[k]["launches_default_path"] = launches[k]
         results[k]["launches_boundary_path"] = bnd["launches"][k]
+        results[k]["launches_cli"] = cli["launches"][k]
+    results[kernels.TABLE_GATHER]["quality_report_ms"] = quality["ms"]
+    results[kernels.TABLE_GATHER]["quality_report_plain_ms"] = \
+        quality["plain_ms"]
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

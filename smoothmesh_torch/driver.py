@@ -52,7 +52,8 @@ from smoothmesh_torch.mesh.tiling import MeshOrders, permute_mesh
 from smoothmesh_torch.mesh.topology import MeshTopology, compile_topology
 from smoothmesh_torch.ops import constraints, raycast, smoothing
 from smoothmesh_torch.params import SmoothingParams
-from smoothmesh_torch.quality import mesh_stats
+from smoothmesh_torch.quality import (QUALITY_TD_KEYS, mesh_stats,
+                                     quality_report)
 
 
 @dataclasses.dataclass
@@ -449,14 +450,44 @@ class Smoother:
         return out
 
     def run(self, log: Optional[Callable[[str], None]] = print,
-            on_write: Optional[Callable[[int, np.ndarray], None]] = None
-            ) -> StepResult:
+            on_write: Optional[Callable[[int, np.ndarray], None]] = None,
+            profile_dir: Optional[str] = None) -> StepResult:
         """The full iteration loop with convergence + periodic writes
-        (reference src/smoothMesh.C:2257-2437)."""
-        p = self.params
+        (reference src/smoothMesh.C:2257-2437).
+
+        ``profile_dir`` captures a ``torch.profiler`` trace of the loop
+        (host and, on the card, CUDA activity) into that directory as a
+        Chrome trace (view in Perfetto or chrome://tracing); the
+        reference only prints a wall clock (:2439).
+        """
         t0 = time.time()
-        result = StepResult(0, float("inf"), 0)
         iter_ms = []
+        if profile_dir:
+            from torch.profiler import (ProfilerActivity, profile,
+                                        tensorboard_trace_handler)
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            trace = tensorboard_trace_handler(profile_dir)
+            with profile(activities=acts, on_trace_ready=trace):
+                result = self._run_loop(log, on_write, iter_ms)
+        else:
+            result = self._run_loop(log, on_write, iter_ms)
+        if log:
+            # the first iteration carries the kernels' first-use build
+            steady = iter_ms[1:] or iter_ms
+            if steady:
+                mean_ms = sum(steady) / len(steady)
+                rate = self.topo.n_points / (mean_ms / 1e3)
+                log(f"Performance: {mean_ms:.3f} ms/iteration, "
+                    f"{rate:,.0f} point-updates/s on {self.device}")
+            log(f"ClockTime = {time.time() - t0:.1f} s.")
+        return result
+
+    def _run_loop(self, log, on_write, iter_ms) -> StepResult:
+        p = self.params
+        result = StepResult(0, float("inf"), 0)
         total = p.centroidal_iters
         done = 0
         while done < total:
@@ -491,13 +522,22 @@ class Smoother:
                 on_write(result.iteration, self.denormalize())
             if stop or not rs:
                 break
-        if log:
-            # the first iteration carries the kernels' first-use build
-            steady = iter_ms[1:] or iter_ms
-            if steady:
-                mean_ms = sum(steady) / len(steady)
-                rate = self.topo.n_points / (mean_ms / 1e3)
-                log(f"Performance: {mean_ms:.3f} ms/iteration, "
-                    f"{rate:,.0f} point-updates/s on {self.device}")
-            log(f"ClockTime = {time.time() - t0:.1f} s.")
         return result
+
+    # -- reporting -----------------------------------------------------------
+    def quality(self) -> dict:
+        """The checkMesh-style report (``quality.quality_report``) of the
+        current points, with length- and volume-valued metrics in
+        external units."""
+        missing = QUALITY_TD_KEYS - set(self.td)
+        if missing:
+            self.td.update(to_device(self.topo, self.device, missing))
+        rep = quality_report(self.points, self.td)
+        # undo normalization on length/volume-valued metrics
+        s = self._scale
+        for k in ("min_edge_length", "max_edge_length"):
+            rep[k] /= s
+        for k in ("min_volume", "max_volume", "total_volume",
+                  "min_pyramid_volume"):
+            rep[k] /= s ** 3
+        return rep

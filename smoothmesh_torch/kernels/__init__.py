@@ -14,11 +14,11 @@ the kernel's launch count.
 
 Arithmetic: ``--fmad=false`` keeps ``a*b+c`` as two rounded operations,
 as the plain PyTorch versions compute it, so the kernels agree with
-them to the last bits except for summation order.  K1-K6 are bound by
+them to the last bits except for summation order.  K1-K7 are bound by
 memory traffic, not by floating-point issue rate, so the contraction
-would buy them nothing measurable; K8 (the ray cast) is bound by its
-operations, and keeps them unfused so that it equals its plain version
-bit for bit.
+would buy them nothing measurable (K7 only copies); K8 (the ray cast)
+is bound by its operations, and keeps them unfused so that it equals
+its plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -191,10 +191,14 @@ POINT_FACE_ANGLES = Kernel(
     [P, P, P, I, I, P],
     "smoothmesh_tpu/ops/tiledstep.py:710")
 
+TABLE_GATHER = Kernel(
+    "K7 table_gather", "gather.cu", "smk_table_gather",
+    [P, P, P, I, I, I, P],
+    "smoothmesh_tpu/ops/tiled.py:551")
 RAYCAST = Kernel(
     "K8 segment_triangle_hits", "raycast.cu", "smk_raycast",
     [P, P, P, I, I, F, F, F, F, P, P],
-    "smoothmesh_tpu/ops/raycast.py:101")
+    "smoothmesh_tpu/ops/raycast.py:102")
 
 ALL = (FACE_GEOMETRY, CELL_CENTRES, PREDICTOR, FREEZE, FACE_ANGLES,
-       POINT_FACE_ANGLES, RAYCAST)
+       POINT_FACE_ANGLES, TABLE_GATHER, RAYCAST)

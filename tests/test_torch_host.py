@@ -127,7 +127,10 @@ def test_import_loads_no_jax():
         "import smoothmesh_torch, smoothmesh_torch.driver, "
         "smoothmesh_torch.convert, smoothmesh_torch.io, "
         "smoothmesh_torch.mesh, smoothmesh_torch.ops, "
-        "smoothmesh_torch.kernels\n"
+        "smoothmesh_torch.kernels, smoothmesh_torch.cli, "
+        "smoothmesh_torch.quality, smoothmesh_torch.ops.gather, "
+        "smoothmesh_torch.testcases, smoothmesh_torch.mesh.extrude, "
+        "smoothmesh_torch.mesh.multiblock\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'smoothmesh_tpu')]\n"
         "print(bad)\n"
@@ -155,3 +158,68 @@ def test_wrappers_refuse_other_devices():
     fp = torch.zeros((1, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         geo.face_centres_areas(pts, fp, fp.bool(), fp[:, 0])
+
+
+@pytest.mark.parametrize("name", ["tc1", "tc2", "tc3", "tc4", "tc5", "tc6",
+                                  "tc7", "tc8"])
+def test_testcases_match(name, monkeypatch):
+    from smoothmesh_tpu import testcases as jtc
+    from smoothmesh_torch import testcases as ttc
+
+    # tc1 reads the reference checkout that the JAX module reads, if any
+    monkeypatch.setenv("SMOOTHMESH_REFERENCE_DIR", jtc.REFERENCE_DIR)
+    got, want = ttc.ALL[name](), jtc.ALL[name]()
+    assert sorted(ttc.ALL) == sorted(jtc.ALL)
+    _assert_mesh_equal(got.mesh, want.mesh)
+    assert dataclasses.asdict(got.params) == dataclasses.asdict(want.params)
+    for f in ("name", "runs", "max_non_ortho", "require_improvement"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert (got.geometry is None) == (want.geometry is None)
+    for g, w in zip(got.geometry or (), want.geometry or ()):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_obj_and_case_io_match(tmp_path):
+    """The OBJ readers and the case's time, mesh and checkpoint IO
+    against the JAX package's, on files written by both."""
+    from smoothmesh_tpu.io import case as jcase
+    from smoothmesh_tpu.io import obj as jobj
+    from smoothmesh_torch.io import case as tcase
+    from smoothmesh_torch.io import obj as tobj
+
+    path = tmp_path / "s.obj"
+    path.write_text("# a quad, a triangle with /vt/vn and a polyline\n"
+                    "o s\nv 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0.5\n"
+                    "f 1 2 3 4\nf 1/1/1 3/2/2 4/3/3\nl 1 2 3\n")
+    tri = tmp_path / "t.obj"
+    tri.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
+    for fn in ("read_obj_surface", "read_obj_edges"):
+        for p in (path, tri):
+            for g, w in zip(getattr(tobj, fn)(str(p)),
+                            getattr(jobj, fn)(str(p))):
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w)
+
+    mesh = TORCH_MESHES["hex"]
+    root = tmp_path / "case"
+    (root / "system").mkdir(parents=True)
+    (root / "system" / "controlDict").write_text("deltaT 0.5; // step\n")
+    c = tcase.FoamCase(str(root))
+    c.write_mesh(mesh, mesh.points, 0.0, overwrite=True)
+    c.write_mesh(mesh, mesh.points + 1.0, 1.5, binary=True)
+    flags = (np.arange(mesh.n_points) % 3 == 0).astype(np.int64)
+    c.write_label_io_list("isCornerPoint", 1.5, flags)
+    j = jcase.FoamCase(str(root))
+    assert c.time_dirs() == j.time_dirs() == [1.5]
+    assert c.latest_time() == j.latest_time() and c.delta_t() == 0.5
+    assert j.delta_t() == 0.5
+    for t in (None, 0.0, 1.5):
+        _assert_mesh_equal(c.read_mesh(t), j.read_mesh(t))
+    np.testing.assert_array_equal(c.read_mesh(1.5).points, mesh.points + 1.0)
+    for t in (0.0, 1.5):
+        g = c.read_label_io_list("isCornerPoint", t, mesh.n_points)
+        w = j.read_label_io_list("isCornerPoint", t, mesh.n_points)
+        assert (g is None) == (w is None) == (t == 0.0)
+    np.testing.assert_array_equal(
+        c.read_label_io_list("isCornerPoint", 1.5, mesh.n_points), flags)
+    assert c.geometry_file("targetSurfaces.obj") is None
