@@ -13,6 +13,9 @@ Phases, each fatal on failure:
      magnitude (<= 1e-4) or the freeze-mask mismatches (<= 1e-4 * N),
      the kernel's and the plain version's times, and the kernel's
      bound (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s);
+     K3's launch, registers and the points that ran its share-a-cell
+     test (those with a positive blend fraction and two closest
+     neighbours);
      then the face-angle fixed point at 128^3 under a band that bites
      (60/120 degrees), once with the current angles from K5/K6 and once
      from their plain versions: more than 0 points frozen, at most
@@ -25,10 +28,15 @@ Phases, each fatal on failure:
      on the top patch, min angle 15, ray misses frozen, the k = 64 dome
      as target surface): on the first iteration's inputs, K8 against
      its plain version (at most 1e-4 * B rays differing in hit or miss,
-     the others within 1e-5 relative), also on a random soup of 1,000
-     triangles (not a multiple of the tile), K3 with boundary points
-     moving and K4 with the boundary pass's incoming freeze mask against
-     theirs, and the times of the plain-PyTorch boundary stages; then
+     the others within 1e-5 relative, and then bit for bit: no ray
+     differing, every t equal), also on a random soup of 1,000
+     triangles (not a multiple of the tile) and, bit for bit, at its
+     edges (no triangles, one ray, one triangle fewer, origins on
+     triangles so that t = +-0), with its launch geometry, registers
+     and shared memory; K3 with boundary points moving (and the points
+     that ran its share-a-cell test) and K4 with the boundary pass's
+     incoming freeze mask against theirs, and the times of the
+     plain-PyTorch boundary stages; then
      Smoother.steps(32) with every kernel but K7 (K8 too) launched once
      per iteration, the top points' largest distance to the dome falling,
      and positive cell volumes;
@@ -106,6 +114,8 @@ TOP_PATCHES = {"top": ["zmax"],
 #: fp32 operations of one ray-triangle test in K8's body: 27 multiplies,
 #: 18 adds and subtracts, 1 division, 8 comparisons, an abs and a select
 RAY_TEST_OPS = 56
+#: K3's block (kThreads in smoothmesh_torch/csrc/predictor.cu)
+K3_THREADS = 128
 #: the quality report's tolerances (float32, kernels against plain)
 Q_REL_TOL = 1e-5              # lengths and volumes, relative
 Q_DEG_TOL = 1e-3              # angles, degrees
@@ -210,6 +220,70 @@ def check_rays(name, got, want, n_rays: int):
     return err, n_differ, hits
 
 
+def check_rays_exact(name, got, want):
+    """K8 held bit for bit: no ray differs in hit or miss and every t
+    equals the plain version's (a zero hit compares equal whatever its
+    sign: the kernel writes +0) -> (rays, zero hits, of which -0 in the
+    plain version)."""
+    n_differ = sum(int((torch.isfinite(g) != torch.isfinite(w)).sum())
+                   for g, w in zip(got, want))
+    n_neq = sum(int((g != w).sum()) for g, w in zip(got, want))
+    require(n_differ == 0 and n_neq == 0,
+            f"{name}: {n_differ} rays differ in hit or miss, {n_neq} t "
+            "values differ (held bit for bit)")
+    zeros = sum(int((w == 0).sum()) for w in want)
+    neg = sum(int(((w == 0) & torch.signbit(w)).sum()) for w in want)
+    return int(want[0].numel()), zeros, neg
+
+
+def resources_of(kernel, marker: str):
+    """(registers, shared bytes, spilled bytes) of the entry function of
+    ``kernel`` whose mangled name holds ``marker``."""
+    for fn, regs, smem, spill in kernel.resources():
+        if marker in fn:
+            return regs, smem, spill
+    raise RuntimeError(f"chip_smoke: no {marker} in {kernel.source}'s log")
+
+
+def k8_edge_cases(o, d, max_dist, tri, dev) -> dict:
+    """K8 against its plain version, bit for bit, at its edges: no
+    triangles, one ray, a triangle count that is not a multiple of the
+    tile or of the slices, and origins on triangles (t = +-0)."""
+    from smoothmesh_torch.ops import raycast
+
+    rng = np.random.default_rng(1)
+    ta = rng.random((1000, 3)) * 2
+    tb = ta + rng.random((1000, 3)) * 0.5
+    tc = ta + rng.random((1000, 3)) * 0.5
+    soup = torch.tensor(raycast.pack_triangles(ta, tb, tc), device=dev)
+    # from vertex a along +-the normal: s = 0, so t = +-0 exactly
+    nrm = np.cross(tb - ta, tc - ta)
+    nrm *= np.where(np.arange(1000) % 2, -1.0, 1.0)[:, None]
+    on_o = soup[:3].T.contiguous()
+    on_d = torch.nn.functional.normalize(torch.tensor(
+        nrm, dtype=torch.float32, device=dev), dim=1)
+    cases = {"0 triangles": (o, d, max_dist, tri[:, :0].contiguous()),
+             "1 ray": (o[:1], d[:1], max_dist, tri),
+             f"{tri.shape[1] - 1} triangles": (
+                 o, d, max_dist, tri[:, :-1].contiguous()),
+             "origins on triangles": (on_o, on_d, 1.0, soup)}
+    out = {}
+    for name, args in cases.items():
+        got = raycast.segment_triangle_hits(*args)
+        want = raycast.segment_triangle_hits_plain(*args)
+        n, zeros, neg = check_rays_exact(f"K8 ({name})", got, want)
+        hits = sum(int(torch.isfinite(w).sum()) for w in want)
+        if name == "origins on triangles":
+            require(zeros == n, f"K8 ({name}): {zeros} zero hits of {n}")
+        out[name] = dict(rays=n, hits=hits, zero_hits=zeros,
+                         plain_negative_zeros=neg)
+        print(f"K8 edge case, {name} ({n} rays x {args[3].shape[1]} "
+              f"triangles): bit-equal to its plain version, {hits} hits, "
+              f"{zeros} zero hits ({neg} of them -0 in the plain version, "
+              "+0 in the kernel)", flush=True)
+    return out
+
+
 def boundary_path(topo, mesh_int, smi: str) -> dict:
     """Phase 5: the boundary path at 128^3 -> its K8 record and launch
     counts."""
@@ -270,6 +344,7 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
     (o, d, max_dist, tri), got = rec["ray_cast"]
     want = raycast.segment_triangle_hits_plain(o, d, max_dist, tri)
     err, n_differ, hits = check_rays("K8", got, want, n_rays)
+    check_rays_exact("K8", got, want)
     ms = device_ms(lambda: raycast.segment_triangle_hits(o, d, max_dist,
                                                          tri), 20)
     plain_ms = device_ms(lambda: raycast.segment_triangle_hits_plain(
@@ -290,12 +365,28 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
                       device=dev)
     rd = torch.nn.functional.normalize(torch.tensor(
         rng.normal(size=(5000, 3)), dtype=torch.float32, device=dev), dim=1)
-    r_err, r_differ, r_hits = check_rays(
-        "K8 (random soup)", raycast.segment_triangle_hits(ro, rd, 10.0, soup),
-        raycast.segment_triangle_hits_plain(ro, rd, 10.0, soup), 5000)
+    got_s = raycast.segment_triangle_hits(ro, rd, 10.0, soup)
+    want_s = raycast.segment_triangle_hits_plain(ro, rd, 10.0, soup)
+    r_err, r_differ, r_hits = check_rays("K8 (random soup)", got_s, want_s,
+                                         5000)
+    check_rays_exact("K8 (random soup)", got_s, want_s)
     print(f"K8 on a random soup (5000 rays x 1000 triangles): {r_differ} "
           f"rays differ in hit or miss, {r_hits} hits, max abs err "
-          f"{r_err:.3g}", flush=True)
+          f"{r_err:.3g}; bit-equal", flush=True)
+    edges = k8_edge_cases(o, d, max_dist, tri, dev)
+    geom = raycast.launch_geometry(n_rays, n_tri, raycast._sm_count(
+        torch.cuda.current_device()))
+    regs, smem, spill = resources_of(kernels.RAYCAST, "raycast_kernel")
+    launch = dict(ray_blocks=geom.ray_blocks, slices=geom.slices,
+                  threads=raycast.THREADS,
+                  rays_per_thread=raycast.RAYS_PER_THREAD,
+                  tris_per_slice=geom.tris_per_slice, registers=regs,
+                  shared_bytes=smem, spilled_bytes=spill)
+    print(f"K8 launch at {MAIN_SIDE}^3: {geom.ray_blocks} x {geom.slices} "
+          f"blocks of {raycast.THREADS} threads, {raycast.RAYS_PER_THREAD} "
+          f"rays a thread, {geom.tris_per_slice} triangles a slice (after "
+          f"a fill of both outputs); {regs} registers, {smem} bytes "
+          f"shared, {spill} bytes spilled", flush=True)
 
     # K3 with boundary points moving, K4 with the boundary pass's mask
     args, got = rec["predictor"]
@@ -310,9 +401,11 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
     require(args[5] and beyond <= MASK_TOL * N and moving > 0,
             f"K3 (boundary): {beyond} points beyond scaled error "
             f"{FIELD_TOL}, {moving} boundary points moving")
+    n_share = int(smo.share_test_mask(args[0], td).sum())
     print(f"K3 with boundary smoothing on: max abs err {k3_err:.3g}, "
           f"scaled {scaled:.3g}; {beyond} of {N} points beyond it; "
-          f"{moving} boundary points move", flush=True)
+          f"{moving} boundary points move; {n_share} points ran the share "
+          "test", flush=True)
     args, got = rec["freeze_constraints"]
     incoming = args[-1]
     extra = incoming | torch.tensor(rng.random(N) < 0.01, device=dev)
@@ -428,7 +521,8 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
         replaces=kernels.RAYCAST.replaces, max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         bytes=work[0], ops=work[1], rays_differing=n_differ,
-        random_soup_rays_differing=r_differ), launches=launches)
+        random_soup_rays_differing=r_differ, edge_cases=edges,
+        launch=launch), launches=launches, k3_share_test_points=n_share)
 
 def gather_phase(td, cell_ctrs, face_geo, smi: str) -> dict:
     """Phase 3b: K7 against its plain version at the two 128^3 shapes ->
@@ -868,6 +962,18 @@ def main() -> int:
             library_ms=None, bytes=work[0], ops=work[1], **extra)
         print(f"{k.name}: {msg}; kernel {ms:.4f} ms, plain {plain_ms:.4f}"
               f" ms, bound {b_ms:.4f} ms ({b_by}) on {kind}", flush=True)
+    n_share = int(smo.share_test_mask(pts, td).sum())
+    regs, smem, spill = resources_of(kernels.PREDICTOR, "predictor_kernel")
+    results[kernels.PREDICTOR].update(
+        share_test_points_default=n_share,
+        launch=dict(blocks=-(-N // K3_THREADS), threads=K3_THREADS,
+                    registers=regs, shared_bytes=smem, spilled_bytes=spill))
+    print(f"K3 launch at {MAIN_SIDE}^3: {-(-N // K3_THREADS)} blocks of "
+          f"{K3_THREADS} threads, one point a thread; {regs} registers, "
+          f"{smem} bytes "
+          f"shared, {spill} bytes spilled; {n_share} of {N} points ran the "
+          "share test (a positive blend fraction, two closest neighbours)",
+          flush=True)
     results[kernels.TABLE_GATHER] = gather_phase(td, cc_p, fg_p, smi)
 
     # the face-angle fixed point (plain PyTorch, as in the JAX package)
@@ -948,6 +1054,8 @@ def main() -> int:
     # -- 5. the boundary path on the same mesh and topology -------------------
     bnd = boundary_path(topo, mesh_int, smi)
     results[kernels.RAYCAST] = bnd["record"]
+    results[kernels.PREDICTOR]["share_test_points_boundary"] = \
+        bnd["k3_share_test_points"]
 
     # -- 6. 32^3: kernels against plain versions over 8 iterations ----------
     small = bench_mesh(SMALL_SIDE)

@@ -9,6 +9,11 @@ times ``steps(--iters)`` and prints, for each, the median and mean of
 the iterations' wall times (one host read each, as ``StepResult``
 records them), then one JSON line with the card's name and power limit.
 
+With ``--boundary`` it times the boundary cell instead: the same mesh
+in bench.py's boundary configuration (layers and boundary smoothing on
+the top patch, min angle 15, ray misses frozen, the k = 64 dome as
+target surface; chip_smoke.boundary_params).
+
 ``--root`` is the checkout whose ``smoothmesh_torch`` is timed (default:
 this repository).  ``--topo`` names a pickle of the compiled topology:
 written when missing, read otherwise, so every checkout runs on one
@@ -42,6 +47,7 @@ def main() -> int:
     ap.add_argument("--side", type=int, default=128)
     ap.add_argument("--iters", type=int, default=32)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--boundary", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -76,8 +82,18 @@ def main() -> int:
         topo = compile_topology(mesh)
         with open(args.topo, "wb") as f:
             pickle.dump(topo, f, protocol=pickle.HIGHEST_PROTOCOL)
-    sm = Smoother(mesh, SmoothingParams(rel_tol=0.0), topo=topo,
-                  device="cuda")
+    if args.boundary:
+        from smoothmesh_torch.testcases import bench_dome_geometry
+
+        params = SmoothingParams(rel_tol=0.0, smoothing_patches=("top",),
+                                 layer_patches=("top",), min_angle=15.0,
+                                 ray_miss_fatal=False)
+    else:
+        params = SmoothingParams(rel_tol=0.0)
+    sm = Smoother(mesh, params, topo=topo, device="cuda")
+    if args.boundary:
+        sm.enable_boundary_smoothing(*bench_dome_geometry()[1:])
+    cell = "boundary" if args.boundary else "default"
     sm.steps(4)
     torch.cuda.synchronize()
     reps = []
@@ -87,10 +103,11 @@ def main() -> int:
         reps.append({"median_ms": float(np.median(walls)),
                      "mean_ms": float(np.mean(walls)),
                      "seconds": time.perf_counter() - t0})
-        print(f"{root}: {args.iters} iterations, median "
+        print(f"{root}, {cell} cell: {args.iters} iterations, median "
               f"{reps[-1]['median_ms']:.4f} ms, mean "
               f"{reps[-1]['mean_ms']:.4f} ms on {smi}", flush=True)
-    print(json.dumps({"root": root, "card": smi, "iters": args.iters,
+    print(json.dumps({"root": root, "cell": cell, "card": smi,
+                      "iters": args.iters,
                       "reps": reps}))
     return 0
 

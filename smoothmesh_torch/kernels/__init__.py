@@ -26,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -56,6 +57,26 @@ def nvcc_path() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def parse_ptxas(log: str) -> list:
+    """[(entry function, registers, shared bytes, spilled bytes)] from
+    an nvcc log with ``-Xptxas=-v``."""
+    out, spills, fn = [], {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:            # ptxas prints it before the registers
+            spills[fn] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((fn, int(m.group(1)),
+                        int(smem.group(1)) if smem else 0,
+                        spills.get(fn, 0)))
+    return out
+
+
 class Kernel:
     """One CUDA source, its C entry point and its launch count."""
 
@@ -84,9 +105,10 @@ class Kernel:
         return BUILD / f"lib{stem}-{h.hexdigest()[:12]}.so"
 
     def _start_build(self):
-        """Start nvcc unless the library exists -> (process, tmp path)."""
+        """Start nvcc unless the library and its log exist -> (process,
+        tmp path)."""
         lib = self.library_path()
-        if lib.exists():
+        if lib.exists() and self.log_path().exists():
             return None
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -103,7 +125,21 @@ class Kernel:
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed for {self.source}:\n{self.build_log}")
+        self.log_path().write_text(self.build_log)
         os.replace(tmp, self.library_path())
+
+    def log_path(self) -> Path:
+        """nvcc's log (``-Xptxas=-v``), kept beside the library."""
+        return self.library_path().with_suffix(".log")
+
+    def resources(self) -> list:
+        """[(entry function, registers, shared bytes, spilled bytes)]
+        from the build log, of this process or kept beside the library;
+        empty if neither exists."""
+        log = self.build_log
+        if not log and self.log_path().exists():
+            log = self.log_path().read_text()
+        return parse_ptxas(log)
 
     def load(self):
         if self._fn is None:
@@ -197,7 +233,7 @@ TABLE_GATHER = Kernel(
     "smoothmesh_tpu/ops/tiled.py:551")
 RAYCAST = Kernel(
     "K8 segment_triangle_hits", "raycast.cu", "smk_raycast",
-    [P, P, P, I, I, F, F, F, F, P, P],
+    [P, P, P, I, I, I, I, I, F, F, F, F, P, P],
     "smoothmesh_tpu/ops/raycast.py:102")
 
 ALL = (FACE_GEOMETRY, CELL_CENTRES, PREDICTOR, FREEZE, FACE_ANGLES,

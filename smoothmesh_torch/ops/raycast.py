@@ -12,7 +12,9 @@ reference's octree ``findLine`` (src/boundaryPointSmoothing.C:682-744).
     (rays x triangles) intermediates stay near 1 GB;
   - :func:`segment_triangle_hits`: the wrapper: the plain version for
     CPU tensors, the hand-written kernel ``csrc/raycast.cu`` (K8,
-    float32) for CUDA tensors.
+    float32) for CUDA tensors;
+  - :func:`launch_geometry`: K8's grid of (ray blocks x triangle
+    slices), from the card's SM count.
 
 The barycentric tolerance depends on the dtype: a hit exactly on an
 edge shared by two triangles computes u or v a few ulps outside both,
@@ -22,6 +24,9 @@ Pallas kernel use).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,6 +38,46 @@ BARY = {torch.float64: 1e-9, torch.float32: 1e-5}
 #: bytes of (rays x triangles) intermediates per chunk of the plain version
 PLAIN_BUDGET = 1 << 30
 PLAIN_LIVE = 16              # (rays x triangles) tensors alive at once
+#: K8's block: threads, rays per thread, triangles per shared tile
+#: (kThreads, kRays and kTile of csrc/raycast.cu)
+THREADS = 128
+RAYS_PER_THREAD = 2
+TILE = 128
+#: blocks per SM that the triangle slices aim at: about three waves of
+#: the ten blocks an SM holds, the quickest of the slice counts
+#: measured at 128^3 (PERF.md)
+BLOCKS_PER_SM = 32
+
+
+class Geometry(NamedTuple):
+    """K8's launch: ``ray_blocks`` x ``slices`` blocks; block (x, y)
+    casts rays [x * THREADS * RAYS_PER_THREAD, ...) against triangles
+    [y * tris_per_slice, (y + 1) * tris_per_slice), both cut at their
+    counts."""
+
+    ray_blocks: int
+    slices: int
+    tris_per_slice: int
+
+
+def launch_geometry(n_rays: int, n_tri: int, n_sm: int) -> Geometry:
+    """Split the triangle loop into slices of whole tiles so that the
+    (ray blocks x slices) grid holds about ``BLOCKS_PER_SM * n_sm``
+    blocks, or one slice per tile where there are fewer tiles.  No
+    rays: an empty grid; no triangles: no slices (only the fill runs)."""
+    ray_blocks = -(-n_rays // (THREADS * RAYS_PER_THREAD))
+    if ray_blocks == 0 or n_tri == 0:
+        return Geometry(ray_blocks, 0, 0)
+    tiles = -(-n_tri // TILE)
+    want = max(1, -(-BLOCKS_PER_SM * n_sm // ray_blocks))
+    tiles_per_slice = -(-tiles // min(want, tiles))
+    tris_per_slice = tiles_per_slice * TILE
+    return Geometry(ray_blocks, -(-n_tri // tris_per_slice), tris_per_slice)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def pack_triangles(ta, tb, tc, dtype=np.float32) -> np.ndarray:
@@ -105,10 +150,13 @@ def segment_triangle_hits(orig, direction, max_dist: float, tri_packed):
     kernels.check(direction, "direction", torch.float32, (n_rays, 3), dev)
     kernels.check(tri_packed, "tri_packed", torch.float32, (9, n_tri), dev)
     bary = BARY[torch.float32]
+    g = launch_geometry(n_rays, n_tri, _sm_count(
+        dev.index if dev.index is not None else torch.cuda.current_device()))
     t_pos = torch.empty((n_rays,), dtype=torch.float32, device=dev)
     t_neg = torch.empty((n_rays,), dtype=torch.float32, device=dev)
     kernels.RAYCAST.launch(
         orig.data_ptr(), direction.data_ptr(), tri_packed.data_ptr(),
-        n_rays, n_tri, float(max_dist), EPS, bary, 1.0 + bary,
+        n_rays, n_tri, g.ray_blocks, g.slices, g.tris_per_slice,
+        float(max_dist), EPS, bary, 1.0 + bary,
         t_pos.data_ptr(), t_neg.data_ptr())
     return t_pos, t_neg

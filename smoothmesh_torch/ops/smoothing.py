@@ -101,18 +101,11 @@ def _share_cell(td, a_ids, b_ids):
     return eq.flatten(1).any(1) & (a_ids >= 0) & (b_ids >= 0)
 
 
-def aspect_ratio_smoothing(points, centroidal_points, td):
-    """Blend midpoint-of-two-closest-points with the centroidal target.
-
-    Internal points: blend only when the two closest edge lengths are
-    similar (ratio < 1.5) and the third is clearly farther (ratio in
-    [1.5, 3] ramps the blend 0..1) — the reference's high-aspect-ratio
-    detection (src/smoothMesh.C:489-543).  Boundary points use the
-    [1.0, 2.0] ramp on the closest-two ratio.  Disabled when the two
-    closest points share a cell.
-    """
+def _blend_fraction(points, td):
+    """The aspect-ratio blend fraction before the share-a-cell test (0
+    where either of the two closest vectors is zero), with the two
+    closest vectors and their neighbour ids."""
     (c1, c2, c3), (i1, i2, _) = _closest_three(points, td)
-    has_common = _share_cell(td, i1, i2)
 
     internal = td["is_internal_point"]
     l1 = norm3(c1)
@@ -129,8 +122,34 @@ def aspect_ratio_smoothing(points, centroidal_points, td):
 
     frac = torch.where(internal, frac_int, frac_bnd)
     zero1 = (c1 == 0.0).all(-1) | (c2 == 0.0).all(-1)
-    frac = torch.where(has_common | zero1, 0.0, frac)
+    return torch.where(zero1, 0.0, frac), c1, c2, i1, i2
 
+
+def share_test_mask(points, td):
+    """The points where K3 runs the share-a-cell test: those whose blend
+    fraction is positive before it (the test can only zero it) and that
+    have two closest neighbours."""
+    frac, _, _, i1, i2 = _blend_fraction(points, td)
+    return (frac > 0.0) & (i1 >= 0) & (i2 >= 0)
+
+
+def aspect_ratio_smoothing(points, centroidal_points, td):
+    """Blend midpoint-of-two-closest-points with the centroidal target.
+
+    Internal points: blend only when the two closest edge lengths are
+    similar (ratio < 1.5) and the third is clearly farther (ratio in
+    [1.5, 3] ramps the blend 0..1) — the reference's high-aspect-ratio
+    detection (src/smoothMesh.C:489-543).  Boundary points use the
+    [1.0, 2.0] ramp on the closest-two ratio.  Disabled when the two
+    closest points share a cell.
+    """
+    frac, c1, c2, i1, i2 = _blend_fraction(points, td)
+    frac = torch.where(_share_cell(td, i1, i2), 0.0, frac)
+    return _blend(points, centroidal_points, frac, c1, c2)
+
+
+def _blend(points, centroidal_points, frac, c1, c2):
+    """The midpoint of the two closest blended in by ``frac``."""
     mid = points + 0.5 * (c1 + c2)
     blended = (1.0 - frac)[:, None] * centroidal_points + frac[:, None] * mid
     return torch.where((frac > 0.0)[:, None], blended, centroidal_points)

@@ -41,6 +41,8 @@ from smoothmesh_torch.geometry import face_centres_areas
 from smoothmesh_torch.mesh.topology import compile_topology
 from smoothmesh_torch.ops import raycast
 
+torch.set_num_threads(1)
+
 CASES = ["tc5", "tc7"]
 TOL = 1e-12
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

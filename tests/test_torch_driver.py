@@ -43,6 +43,8 @@ from smoothmesh_torch.driver import Smoother
 from smoothmesh_torch.mesh.blockmesh import hex_block, perturb
 from smoothmesh_torch.params import SmoothingParams
 
+torch.set_num_threads(1)
+
 ITERS = 6
 #: face-angle bands (degrees) of the face-angle-on runs
 BANDS = {"default": {}, "60-120": dict(min_angle=60.0, max_angle=120.0)}

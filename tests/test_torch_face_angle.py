@@ -48,6 +48,8 @@ from smoothmesh_torch.device import to_device
 from smoothmesh_torch.mesh.topology import MeshTopology
 from smoothmesh_torch.ops import constraints as con
 
+torch.set_num_threads(1)
+
 MESHES = {
     # the fixture of tests/test_kernels_vs_oracle.py
     "oracle": lambda: perturb(hex_block(n=(4, 4, 4), grading=(3.0, 1.0, 0.3)),

@@ -29,6 +29,8 @@ from smoothmesh_torch.mesh.topology import compile_topology
 from smoothmesh_torch.params import SmoothingParams
 from smoothmesh_torch.quality import mesh_stats
 
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

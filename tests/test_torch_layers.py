@@ -26,6 +26,8 @@ from smoothmesh_torch import testcases as ttc
 from smoothmesh_torch.device import to_device
 from smoothmesh_torch.mesh.topology import compile_topology
 
+torch.set_num_threads(1)
+
 CASES = ["tc5", "tc7"]
 TOL = 1e-12
 _blend = jax.jit(jlay.blend_with_orthogonal_points,

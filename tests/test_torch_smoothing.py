@@ -28,6 +28,8 @@ from smoothmesh_torch.device import to_device
 from smoothmesh_torch.mesh.topology import MeshTopology
 from smoothmesh_torch.ops import smoothing as sm
 
+torch.set_num_threads(1)
+
 MESHES = {
     "hex": perturb(hex_block(n=(14, 12, 10)), amplitude=0.05, seed=5),
     "prism": perturb(prism_block(n=(8, 8, 6)), amplitude=0.04, seed=6),
