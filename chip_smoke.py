@@ -3,7 +3,8 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit; build the CUDA kernels (K1-K8,
-     one nvcc per source, all at once) and print the build time;
+     one nvcc per source, all at once; a second run in the same
+     checkout compiles none) and print the build time;
   2. the 128^3 graded, perturbed hex of bench.py (2,146,689 points),
      with the patches of its boundary mode ("top" = zmax, "rest" = the
      other five), and a Smoother with the default parameters (face
@@ -13,9 +14,13 @@ Phases, each fatal on failure:
      magnitude (<= 1e-4) or the freeze-mask mismatches (<= 1e-4 * N),
      the kernel's and the plain version's times, and the kernel's
      bound (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s);
-     K3's launch, registers and the points that ran its share-a-cell
-     test (those with a positive blend fraction and two closest
-     neighbours);
+     K4 held bit for bit (no mask mismatch at the main thresholds or at
+     tight ones, 3 x the minimum edge length and 60 degrees) and K5 bit
+     for bit (max abs err 0), with their byte bounds on the packed
+     tables they read and on the old ones, their launch geometry,
+     registers, shared memory and spills; K3's launch, registers and
+     the points that ran its share-a-cell test (those with a positive
+     blend fraction and two closest neighbours);
      then the face-angle fixed point at 128^3 under a band that bites
      (60/120 degrees), once with the current angles from K5/K6 and once
      from their plain versions: more than 0 points frozen, at most
@@ -35,8 +40,8 @@ Phases, each fatal on failure:
      triangles so that t = +-0), with its launch geometry, registers
      and shared memory; K3 with boundary points moving (and the points
      that ran its share-a-cell test) and K4 with the boundary pass's
-     incoming freeze mask against theirs, and the times of the
-     plain-PyTorch boundary stages; then
+     incoming freeze mask (bit for bit) against theirs, and the times of
+     the plain-PyTorch boundary stages; then
      Smoother.steps(32) with every kernel but K7 (K8 too) launched once
      per iteration, the top points' largest distance to the dome falling,
      and positive cell volumes;
@@ -47,7 +52,9 @@ Phases, each fatal on failure:
      the max step pinned above the raw steps (residuals within 2e-3,
      frozen counts within 10% + 10, equal ray-miss counts; in the
      boundary configuration also every residual below 1 and the points
-     within 1e-3 at the end);
+     within 1e-3 at the end); under the four bands K4 and K5 also held
+     bit for bit against their plain versions on every iteration's
+     inputs (K4 at the main and the tight thresholds);
   3b. K7 (the table gather) against its plain version at the two 128^3
      shapes, point_cells (C = 3) and cell_faces (C = 4), bit-equal over
      the whole output, masked slots included; its time, its bytes bound
@@ -116,6 +123,17 @@ TOP_PATCHES = {"top": ["zmax"],
 RAY_TEST_OPS = 56
 #: K3's block (kThreads in smoothmesh_torch/csrc/predictor.cu)
 K3_THREADS = 128
+#: K4's and K5's blocks and their shared memory a thread: K4 36 bytes
+#: a neighbour slot, K5 a float4 a face slot (kThreads, kSlotBytes in
+#: csrc/freeze.cu and csrc/face_angles.cu)
+K4_THREADS = K5_THREADS = 128
+K4_SLOT_BYTES, K5_SLOT_BYTES = 36, 16
+#: what K4's plain version reads that the card's default path does not
+#: stage (K4 reads the packed wedge words instead)
+K4_PLAIN_KEYS = ("point_faces_mask", "wedge_prev", "wedge_next")
+#: tight freeze thresholds (x min edge length, degrees): they freeze
+#: many points of the bench meshes where the main path's freeze few
+TIGHT_FREEZE = (3.0, 60.0)
 #: the quality report's tolerances (float32, kernels against plain)
 Q_REL_TOL = 1e-5              # lengths and volumes, relative
 Q_DEG_TOL = 1e-3              # angles, degrees
@@ -128,8 +146,9 @@ Q_OPEN_TOL = 1e-5
 CLI_ITERS = 8
 #: the device tables that the face angle adds (K5, K6, the fixed point)
 FACE_ANGLE_KEYS = ("edges", "edge_faces", "edge_cells", "edge_cells_mask",
-                   "edge_cell_f0", "edge_cell_f1", "point_edges",
-                   "point_edges_mask", "pps_signed", "pe_flat")
+                   "edge_cell_f0", "edge_cell_f1", "edge_cell_words",
+                   "point_edges", "point_edges_mask", "pps_signed",
+                   "pe_flat")
 
 
 def require(cond, msg: str) -> None:
@@ -243,6 +262,107 @@ def resources_of(kernel, marker: str):
         if marker in fn:
             return regs, smem, spill
     raise RuntimeError(f"chip_smoke: no {marker} in {kernel.source}'s log")
+
+
+def with_plain_tables(td, topo) -> dict:
+    """``td`` and the tables K4's plain version reads that the card's
+    path does not stage (K4 reads the packed wedge words)."""
+    from smoothmesh_torch.device import to_device
+
+    missing = [k for k in K4_PLAIN_KEYS if k not in td]
+    return {**td, **(to_device(topo, "cuda", missing) if missing else {})}
+
+
+def exact_k4_k5_stages(stats: dict):
+    """The plain stages, holding K4 and K5 bit for bit against their
+    plain versions on every iteration's inputs: K4 at the iteration's
+    thresholds and at TIGHT_FREEZE, K5 on the iteration's face means
+    and cell centres (also where the face angle is off).  Counts into
+    ``stats``: K4 mask mismatches, K5 values not bit-equal, K5's max
+    abs err, points frozen at the tight thresholds."""
+    from smoothmesh_torch.driver import PLAIN_STAGES, Stages
+    from smoothmesh_torch.ops import constraints as con
+
+    seen = {}
+    for k in ("k4_mismatches", "k4_tight_frozen", "k5_bits", "calls"):
+        stats.setdefault(k, 0)
+    stats.setdefault("k5_max_abs_err", 0.0)
+
+    def face_geometry(*a):
+        seen["fg"] = PLAIN_STAGES.face_geometry(*a)
+        return seen["fg"]
+
+    def cell_centres_vols(*a):
+        out = PLAIN_STAGES.cell_centres_vols(*a)
+        seen["cc"] = out[0]
+        return out
+
+    def freeze(points, prop, td, min_edge, tmf, angle, edge_angle, frozen):
+        tight = (TIGHT_FREEZE[0] * min_edge, math.radians(TIGHT_FREEZE[1]))
+        wants = []
+        for e_, a_ in ((min_edge, angle), tight):
+            args = (points, prop, td, e_, tmf, a_, edge_angle, frozen)
+            wants.append(con.freeze_constraints_plain(*args))
+            got = con.freeze_constraints(*args)
+            stats["k4_mismatches"] += int((got != wants[-1]).sum())
+        stats["k4_tight_frozen"] += int(wants[1].sum())
+        ue = [f(points, seen["fg"].means, seen["cc"], td) for f in (
+            con.edge_face_angles, con.edge_face_angles_plain)]
+        stats["k5_bits"] += int((ue[0].view(torch.int32)
+                                 != ue[1].view(torch.int32)).sum())
+        stats["k5_max_abs_err"] = max(stats["k5_max_abs_err"], float(
+            (ue[0] - ue[1]).abs().max()))
+        stats["calls"] += 1
+        return wants[0]
+
+    return Stages(face_geometry, cell_centres_vols, PLAIN_STAGES.predictor,
+                  freeze, PLAIN_STAGES.face_angles_per_point,
+                  PLAIN_STAGES.ray_cast)
+
+
+def k4_k5_edge_cases(pts, prop, means, cc, td_p, freeze_args) -> dict:
+    """K4 and K5 against their plain versions, bit for bit, on the paths
+    the main inputs do not take: a wedge row whose width is not a
+    multiple of 4 (K4's scalar word loads), face rows wider than 32
+    (K5's 128-bit slot set), and operands outside the range in which the
+    kernels divide without a check (K4: 1,000 points proposed onto a
+    neighbour, so one norm is 0; K5: 1,000 edges of zero length), which
+    each kernel redoes with '/'.  freeze_args: K4's thresholds and
+    flags after the td argument."""
+    from smoothmesh_torch.ops import constraints as con
+
+    out = {}
+    cut = {k: td_p[k][:, :-1].contiguous() for k in (
+        "wedge_words", "point_faces_mask", "wedge_prev", "wedge_next")}
+    onto = prop.clone()
+    rows = torch.arange(1000, device=pts.device)
+    onto[rows] = pts[td_p["point_points"][rows, 0].long()]
+    for name, p_, td_ in (
+            (f"wedge rows of width {cut['wedge_words'].shape[1]}", prop,
+             {**td_p, **cut}),
+            ("1000 points proposed onto a neighbour", onto, td_p)):
+        a = (pts, p_, td_) + freeze_args
+        got, want = con.freeze_constraints(*a), con.freeze_constraints_plain(*a)
+        mism = int((got != want).sum())
+        require(mism == 0, f"K4 ({name}): {mism} mask mismatches")
+        out[f"K4 {name}"] = dict(mismatches=mism, frozen=int(want.sum()))
+    wef = td_p["edge_faces"].shape[1]
+    wide = torch.nn.functional.pad(td_p["edge_faces"], (0, 40 - wef))
+    flat = pts.clone()
+    ends = td_p["edges"][:1000].long()
+    flat[ends[:, 1]] = flat[ends[:, 0]]
+    for name, p_, td_ in (
+            ("edge_faces rows padded to width 40", pts,
+             {**td_p, "edge_faces": wide.contiguous()}),
+            ("1000 edges of zero length", flat, td_p)):
+        a = (p_, means, cc, td_)
+        got, want = con.edge_face_angles(*a), con.edge_face_angles_plain(*a)
+        bits = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        require(bits == 0, f"K5 ({name}): {bits} values not bit-equal")
+        out[f"K5 {name}"] = dict(values_not_bit_equal=bits)
+    for k, v in out.items():
+        print(f"{k}: bit-equal to its plain version ({v})", flush=True)
+    return out
 
 
 def k8_edge_cases(o, d, max_dist, tri, dev) -> dict:
@@ -409,14 +529,18 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
     args, got = rec["freeze_constraints"]
     incoming = args[-1]
     extra = incoming | torch.tensor(rng.random(N) < 0.01, device=dev)
+    td_p = with_plain_tables(td, topo)
     mism = []
     for mask in (incoming, extra):
-        a = args[:-1] + (mask,)
+        a = args[:2] + (td_p,) + args[3:-1] + (mask,)
         k = con.freeze_constraints(*a)
         mism.append(int((k != con.freeze_constraints_plain(*a)).sum()))
         require(bool((k | ~mask).all()), "K4 dropped an incoming freeze")
     require(max(mism) <= MASK_TOL * N,
             f"K4 (incoming mask): {mism} freeze-mask mismatches")
+    require(max(mism) == 0, f"K4 (incoming mask): {mism} freeze-mask "
+            "mismatches (held bit for bit)")
+    del td_p
     print(f"K4 with the boundary pass's incoming mask ({int(incoming.sum())}"
           f" frozen on entry, {int(got.sum())} on exit): {mism[0]} "
           f"mismatches of {N}; with 1% of points more frozen on entry "
@@ -799,8 +923,11 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    n_new = sum(not (k.library_path().exists() and k.log_path().exists())
+                for k in kernels.ALL)
     t_build = kernels.build_all()
-    print(f"build: {t_build:.2f} s for {len(kernels.ALL)} kernels")
+    print(f"build: {t_build:.2f} s for {len(kernels.ALL)} kernels, {n_new} "
+          f"of them compiled now (the others were built before)")
     for k in kernels.ALL:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -834,7 +961,10 @@ def main() -> int:
     own, cf, cfm = td["owner"], td["cell_faces"], td["cell_faces_mask"]
     pc, pcm = td["point_cells"], td["point_cells_mask"]
     pp, ppm = td["point_points"], td["point_points_mask"]
-    pfm, wpv, wnx = td["point_faces_mask"], td["wedge_prev"], td["wedge_next"]
+    td_p = with_plain_tables(td, topo)      # + K4's plain version's tables
+    pfm, wpv, wnx = (td_p["point_faces_mask"], td_p["wedge_prev"],
+                     td_p["wedge_next"])
+    words = td["wedge_words"]
     intern = td["is_internal_point"]
     none = torch.zeros(N, dtype=torch.bool, device=sm.device)
 
@@ -844,7 +974,7 @@ def main() -> int:
                                            p.rel_step_frac, False)
 
     def freeze(stage, edge, angle):
-        return stage(pts, prop_p, td, edge, p.total_min_freeze, angle,
+        return stage(pts, prop_p, td_p, edge, p.total_min_freeze, angle,
                      p.edge_angle_constraint, none)
 
     frz_p = freeze(con.freeze_constraints_plain, min_edge, p.min_angle_rad)
@@ -857,6 +987,15 @@ def main() -> int:
                 f"{name}: scaled error {scaled:.3g} > {FIELD_TOL}")
         return err, {"scaled_err": scaled}, \
             f"max abs err {err:.3g}, scaled {scaled:.3g}"
+
+    def check_exact(name, got, want):
+        err, extra, msg = check_fields(name, got, want)
+        bits = sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                   for g, w in zip(got, want))
+        require(err == 0 and bits == 0, f"{name}: max abs err {err}, {bits} "
+                "values not bit-equal (held bit for bit)")
+        return err, dict(extra, values_not_bit_equal=bits), \
+            f"{msg}, bit-equal"
 
     def check_k3(name, got, want):
         err, scaled = field_err(got, want)
@@ -886,13 +1025,15 @@ def main() -> int:
         mism = int((got != want).sum())
         # the main path's thresholds freeze few or no internal points of
         # this mesh; tighter ones (3 x min edge, 60 degrees) freeze many
-        tight = (3.0 * min_edge, math.radians(60.0))
+        tight = (TIGHT_FREEZE[0] * min_edge, math.radians(TIGHT_FREEZE[1]))
         want_t = freeze(con.freeze_constraints_plain, *tight)
         mism_t = int((freeze(con.freeze_constraints, *tight)
                       != want_t).sum())
         n_t = int(want_t.sum())
         require(mism <= MASK_TOL * N and mism_t <= MASK_TOL * N,
                 f"{name}: {mism} / {mism_t} freeze-mask mismatches")
+        require(mism == 0 and mism_t == 0, f"{name}: {mism} / {mism_t} "
+                "freeze-mask mismatches (held bit for bit)")
         require(n_t > 0, f"{name}: tight thresholds froze no point")
         return float(max(mism, mism_t) > 0), \
             {"mismatches": mism, "tight_mismatches": mism_t,
@@ -906,6 +1047,8 @@ def main() -> int:
     edges, ef, ec = td["edges"], td["edge_faces"], td["edge_cells"]
     ef0, ef1, ecm = (td["edge_cell_f0"], td["edge_cell_f1"],
                      td["edge_cells_mask"])
+    cw = td["edge_cell_words"]
+    n_ef = int(topo.edge_faces_mask.sum())      # faces a valid cell names
     pe, pem = td["point_edges"], td["point_edges_mask"]
     n_ec, n_pe = int(ecm.sum()), int(pem.sum())
     stages = (   # kernel call, plain call, check, plain result,
@@ -931,15 +1074,18 @@ def main() -> int:
          lambda: freeze(con.freeze_constraints_plain, min_edge,
                         p.min_angle_rad),
          check_k4, frz_p,
-         (nbytes(pts, prop_p, pp, ppm, pfm, wpv, wnx, none, frz_p),
-          18 * n_pp + 133 * n_pf)),
+         # ~30 operations a neighbour (three vectors and norms), ~49 a
+         # wedge (five dots, products, divisions and clamps)
+         (nbytes(pts, prop_p, pp, ppm, words, none, frz_p),
+          30 * n_pp + 49 * n_pf)),
         (lambda: (con.edge_face_angles(pts, fg_p.means, cc_p, td),),
          lambda: con.edge_face_angles_plain(pts, fg_p.means, cc_p, td),
-         check_fields, (ue_p,),
-         # ~19 operations per edge (its frame), ~100 per valid
-         # (edge, cell) slot (three projections and the u metric)
-         (nbytes(pts, fg_p.means, cc_p, edges, ef, ec, ef0, ef1, ecm, ue_p),
-          19 * topo.n_edges + 100 * n_ec)),
+         check_exact, (ue_p,),
+         # ~19 operations per edge (its frame), ~26 per face projected,
+         # ~52 per valid (edge, cell) slot (its centre's projection, two
+         # dots and the u metric)
+         (nbytes(pts, fg_p.means, cc_p, edges, ef, ec, cw, ue_p),
+          19 * topo.n_edges + 26 * n_ef + 52 * n_ec)),
         (lambda: (con.point_face_angles(ue_p, td),),
          lambda: con.point_face_angles_plain(ue_p, td),
          check_fields, (up_p,),
@@ -962,6 +1108,39 @@ def main() -> int:
             library_ms=None, bytes=work[0], ops=work[1], **extra)
         print(f"{k.name}: {msg}; kernel {ms:.4f} ms, plain {plain_ms:.4f}"
               f" ms, bound {b_ms:.4f} ms ({b_by}) on {kind}", flush=True)
+    # the byte bounds on the unpacked tables the words replace:
+    # wedge_prev, wedge_next and point_faces_mask; edge_cell_f0,
+    # edge_cell_f1 and edge_cells_mask (9 bytes a slot against one
+    # 2-byte word)
+    for k, old_bytes in (
+            (kernels.FREEZE, nbytes(pts, prop_p, pp, ppm, pfm, wpv, wnx, none,
+                                    frz_p)),
+            (kernels.FACE_ANGLES, nbytes(pts, fg_p.means, cc_p, edges, ef, ec,
+                                         ef0, ef1, ecm, ue_p))):
+        b_old, _ = bound(old_bytes, 0)
+        r = results[k]
+        r.update(bytes_old_tables=old_bytes, bound_ms_old_tables=b_old)
+        print(f"{k.name} bound: {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['bytes'] / 1e6:.1f} MB) on the tables it reads now, "
+              f"{b_old:.4f} ms ({old_bytes / 1e6:.1f} MB) on the old ones",
+              flush=True)
+    wp, wef = pp.shape[1], ef.shape[1]
+    for k, marker, threads, dyn, rows, unit in (
+            (kernels.FREEZE, "freeze_kernel", K4_THREADS,
+             K4_SLOT_BYTES * wp * K4_THREADS, N, "point"),
+            (kernels.FACE_ANGLES,
+             f"face_angles_kernelILb{int(wef > 32)}E", K5_THREADS,
+             K5_SLOT_BYTES * wef * K5_THREADS, topo.n_edges, "edge")):
+        regs, smem, spill = resources_of(k, marker)
+        results[k]["launch"] = dict(
+            blocks=-(-rows // threads), threads=threads,
+            dynamic_shared_bytes=dyn, registers=regs,
+            static_shared_bytes=smem, spilled_bytes=spill)
+        print(f"{k.name} launch at {MAIN_SIDE}^3: {-(-rows // threads)} "
+              f"blocks of {threads} threads, one {unit} a thread, {dyn} "
+              f"bytes of dynamic shared memory a block; {regs} registers, "
+              f"{smem} bytes static shared, {spill} bytes spilled",
+              flush=True)
     n_share = int(smo.share_test_mask(pts, td).sum())
     regs, smem, spill = resources_of(kernels.PREDICTOR, "predictor_kernel")
     results[kernels.PREDICTOR].update(
@@ -974,6 +1153,13 @@ def main() -> int:
           f"shared, {spill} bytes spilled; {n_share} of {N} points ran the "
           "share test (a positive blend fraction, two closest neighbours)",
           flush=True)
+    edge_cases = k4_k5_edge_cases(
+        pts, prop_p, fg_p.means, cc_p, td_p,
+        (min_edge, p.total_min_freeze, p.min_angle_rad,
+         p.edge_angle_constraint, none))
+    for k, tag in ((kernels.FREEZE, "K4"), (kernels.FACE_ANGLES, "K5")):
+        results[k]["edge_cases"] = {n: v for n, v in edge_cases.items()
+                                    if n.startswith(tag)}
     results[kernels.TABLE_GATHER] = gather_phase(td, cc_p, fg_p, smi)
 
     # the face-angle fixed point (plain PyTorch, as in the JAX package)
@@ -1013,6 +1199,7 @@ def main() -> int:
           f"{fa_mism} masks differ; {fa_ms:.2f} ms (host clock, "
           f"synchronized) on {smi}", flush=True)
     del fg_p, cc_p, vol_p, prop_p, curmin_p, frz_p, ue_p, up_p, cur_k, cur_p
+    del td_p, pfm, wpv, wnx
 
     # -- 4. the default path through the user's entry point ------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1063,15 +1250,18 @@ def main() -> int:
                ("default band", {})]
     configs += [(f"band {lo, hi}", dict(min_angle=lo, max_angle=hi))
                 for lo, hi in (TIGHT_BAND, TIGHTER_BAND)]
+    small_exact = {}
     for label, kw in configs:
         sk = Smoother(small, SmoothingParams(
             centroidal_iters=SMALL_ITERS, rel_tol=0.0, **kw), device="cuda")
         n_bnd = int((~sk.td["is_internal_point"]).sum())
         pts_p = sk.points.clone()
         rk = sk.steps(SMALL_ITERS)
+        td_p = with_plain_tables(sk.td, sk.topo)
+        exact = small_exact[label] = {}
         for i, r in enumerate(rk):
             pts_p, _, res_p, nf_p, _ = iteration_body(
-                pts_p, sk.td, sk.params, sk._scale, PLAIN_STAGES)
+                pts_p, td_p, sk.params, sk._scale, exact_k4_k5_stages(exact))
             res_p, nf_p = float(res_p), int(nf_p)
             where = f"{SMALL_SIDE}^3 {label}, iteration {i + 1}"
             require(abs(r.residual - res_p) < 2e-3,
@@ -1080,10 +1270,19 @@ def main() -> int:
             require(abs(r.n_frozen - nf_p) <= 0.1 * nf_p + 10,
                     f"{where}: nFrozen {r.n_frozen} (kernels) vs {nf_p} "
                     "(plain)")
+        require(exact["calls"] == SMALL_ITERS and exact["k4_mismatches"] == 0
+                and exact["k5_bits"] == 0 and exact["k4_tight_frozen"] > 0,
+                f"{SMALL_SIDE}^3 {label}: K4 and K5 against their plain "
+                f"versions on each iteration's inputs: {exact}")
         print(f"{SMALL_SIDE}^3 x {SMALL_ITERS}, {label}: kernels and plain "
               f"versions agree (last residual {rk[-1].residual:.6g} vs "
               f"{res_p:.6g}, nFrozen {rk[-1].n_frozen} vs {nf_p}, of "
-              f"which {n_bnd} boundary points)", flush=True)
+              f"which {n_bnd} boundary points); on each iteration's "
+              f"inputs K4 {exact['k4_mismatches']} mask mismatches at the "
+              f"main and tight thresholds ({exact['k4_tight_frozen']} "
+              f"frozen at the tight ones in all), K5 "
+              f"{exact['k5_bits']} values not bit-equal, max abs err "
+              f"{exact['k5_max_abs_err']:.3g}", flush=True)
     require(rk[-1].n_frozen > n_bnd,
             f"{SMALL_SIDE}^3, band {TIGHTER_BAND}: no internal point froze")
 
@@ -1095,9 +1294,10 @@ def main() -> int:
     sk.enable_boundary_smoothing(*bench_dome_geometry()[1:])
     pts_p, nrm_p = sk.points.clone(), sk.normals.clone()
     rk = sk.steps(SMALL_ITERS)
+    td_p = with_plain_tables(sk.td, sk.topo)
     for i, r in enumerate(rk):
         pts_p, nrm_p, res_p, nf_p, nm_p = iteration_body(
-            pts_p, sk.td, sk.params, sk._scale, PLAIN_STAGES, normals=nrm_p,
+            pts_p, td_p, sk.params, sk._scale, PLAIN_STAGES, normals=nrm_p,
             smoothing_surface=sk.smoothing_surface, layer=sk.layer,
             bnd=sk.bnd)
         res_p, nf_p, nm_p = float(res_p), int(nf_p), int(nm_p)
@@ -1122,7 +1322,7 @@ def main() -> int:
           f"end {moved:.3g} < {BND_POINT_TOL}, normalized units)", flush=True)
 
     # -- 7. the CLI at full size ------------------------------------------
-    del small, sk, pts_p, nrm_p
+    del small, sk, pts_p, nrm_p, td_p
     torch.cuda.empty_cache()
     cli = cli_phase(mesh, smi)
 
@@ -1134,6 +1334,8 @@ def main() -> int:
         results[k]["launches_default_path"] = launches[k]
         results[k]["launches_boundary_path"] = bnd["launches"][k]
         results[k]["launches_cli"] = cli["launches"][k]
+    for k in (kernels.FREEZE, kernels.FACE_ANGLES):
+        results[k]["small_runs_exact"] = small_exact
     results[kernels.TABLE_GATHER]["quality_report_ms"] = quality["ms"]
     results[kernels.TABLE_GATHER]["quality_report_plain_ms"] = \
         quality["plain_ms"]

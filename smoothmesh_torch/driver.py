@@ -111,9 +111,22 @@ TD_KEYS = frozenset({
     "edge_cell_f1", "point_edges", "point_edges_mask", "pps_signed",
     "pe_flat",
 })
+#: What the kernels read on the card: K4 the packed wedge words in place
+#: of the plain version's wedge tables, K5 the packed cell words beside
+#: the fixed point's edge_cell_f0/f1 and edge_cells_mask.
+CUDA_TD_KEYS = (TD_KEYS - {"point_faces_mask", "wedge_prev", "wedge_next"}
+                | {"wedge_words", "edge_cell_words"})
 #: What the boundary point normals add (layers and boundary smoothing);
 #: staged only when one of them is on.
-NORMALS_TD_KEYS = frozenset({"point_faces", "face_is_real_boundary"})
+NORMALS_TD_KEYS = frozenset({"point_faces", "point_faces_mask",
+                             "face_is_real_boundary"})
+
+
+def td_keys(device: torch.device, normals: bool = False) -> frozenset:
+    """The device-topology tables one iteration reads on ``device``,
+    with or without the boundary point normals."""
+    keys = CUDA_TD_KEYS if device.type == "cuda" else TD_KEYS
+    return (keys | NORMALS_TD_KEYS) if normals else keys
 
 
 def iteration_body(points, td, params: SmoothingParams, scale: float,
@@ -255,8 +268,7 @@ class Smoother:
         self._will_layer = bool(len(self._layer_ids)
                                and params.layer_max_blending_fraction
                                > 1e-15)
-        keys = TD_KEYS | (NORMALS_TD_KEYS if self._will_layer else set())
-        self.td = to_device(topo, device, keys)
+        self.td = to_device(topo, device, td_keys(device, self._will_layer))
         self.points = self._tensor(points, dtype)
         # boundary point normals (state), the boundary points that may
         # move, and the layer and boundary tables: none until enabled
@@ -416,9 +428,9 @@ class Smoother:
         return arr[self._orders.point_new]
 
     # -- the iteration loop ------------------------------------------------
-    def step(self) -> StepResult:
-        """One iteration; raises ``RuntimeError`` (and keeps the state)
-        when a ray cast misses under ``ray_miss_fatal``."""
+    def _iterate(self):
+        """One iteration, counted -> (its StepResult, the new points and
+        normals, uncommitted), with one host read."""
         t0 = time.perf_counter()
         new_points, normals, res, n_frozen, n_miss = iteration_body(
             self.points, self.td, self.params, self._scale,
@@ -428,22 +440,36 @@ class Smoother:
         if self.bnd is not None:
             scalars.append(n_miss.double())
         res, n_frozen, *miss = torch.stack(scalars).tolist()  # host sync
-        n_miss = miss[0] if miss else 0
+        self._iteration += 1
         wall = (time.perf_counter() - t0) * 1e3
-        if n_miss and self.params.ray_miss_fatal:
-            raise RuntimeError(RAY_MISS_MSG.format(n=int(n_miss)))
+        return (StepResult(self._iteration, res, int(n_frozen), wall,
+                           int(miss[0]) if miss else 0),
+                new_points, normals)
+
+    def _check_miss(self, r: StepResult) -> None:
+        if r.n_ray_miss and self.params.ray_miss_fatal:
+            raise RuntimeError(RAY_MISS_MSG.format(n=r.n_ray_miss))
+
+    def step(self) -> StepResult:
+        """One iteration.  When a ray cast misses under
+        ``ray_miss_fatal`` it raises ``RuntimeError`` and keeps the points
+        and normals, but counts the iteration (as the JAX ``step``)."""
+        r, new_points, normals = self._iterate()
+        self._check_miss(r)
         self.points = new_points
         self.normals = normals
-        self._iteration += 1
-        return StepResult(self._iteration, res, int(n_frozen), wall,
-                          int(n_miss))
+        return r
 
     def steps(self, n: int) -> "list[StepResult]":
         """Run up to ``n`` iterations, stopping after the first one whose
-        residual is below ``rel_tol``."""
+        residual is below ``rel_tol``.  When a ray cast misses under
+        ``ray_miss_fatal`` the offending iteration is committed (points,
+        normals and the count) and then ``RuntimeError`` is raised, as
+        the JAX ``steps`` (and so ``run`` and the CLI) does."""
         out = []
         for _ in range(n):
-            r = self.step()
+            r, self.points, self.normals = self._iterate()
+            self._check_miss(r)
             out.append(r)
             if r.residual < self.params.rel_tol:
                 break

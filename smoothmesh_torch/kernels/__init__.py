@@ -14,11 +14,14 @@ the kernel's launch count.
 
 Arithmetic: ``--fmad=false`` keeps ``a*b+c`` as two rounded operations,
 as the plain PyTorch versions compute it, so the kernels agree with
-them to the last bits except for summation order.  K1-K7 are bound by
-memory traffic, not by floating-point issue rate, so the contraction
-would buy them nothing measurable (K7 only copies); K8 (the ray cast)
-is bound by its operations, and keeps them unfused so that it equals
-its plain version bit for bit.
+them to the last bits except for summation order; K4, K5, K6 and K8
+equal theirs bit for bit.  K1-K3, K6 and K7 are bound by memory traffic
+(K7 only copies).  K4 and K5 are not: the latency of their scattered
+gathers sets their pace, and before their redesign each IEEE division's
+range check and slow-path branch did too, so both now divide with the
+compiler's own fast-path sequence and check the operands once per point
+or edge (``csrc/freeze.cu``).  K8 (the ray cast) is bound by its
+operations.
 """
 
 from __future__ import annotations
@@ -216,11 +219,11 @@ PREDICTOR = Kernel(
     "smoothmesh_tpu/ops/tiledstep.py:435")
 FREEZE = Kernel(
     "K4 freeze_constraints", "freeze.cu", "smk_freeze_constraints",
-    [P, P, P, P, P, P, P, P, I, I, I, F, I, F, I, P],
+    [P, P, P, P, P, P, I, I, I, F, I, F, I, P],
     "smoothmesh_tpu/ops/tiledstep.py:724")
 FACE_ANGLES = Kernel(
     "K5 edge_face_angles", "face_angles.cu", "smk_face_angles",
-    [P, P, P, P, P, P, P, P, P, I, I, I, P],
+    [P, P, P, P, P, P, P, I, I, I, P],
     "smoothmesh_tpu/ops/tiledstep.py:640")
 POINT_FACE_ANGLES = Kernel(
     "K6 point_face_angles", "point_face_angles.cu", "smk_point_face_angles",

@@ -146,7 +146,10 @@ def freeze_constraints_plain(points, proposed, td, min_edge_length,
 def freeze_constraints(points, proposed, td, min_edge_length,
                        total_min_freeze, min_angle_rad,
                        edge_angle_constraint, frozen):
-    """The fused freeze stage (K4): -> (N,) bool freeze mask."""
+    """The fused freeze stage (K4): -> (N,) bool freeze mask.  On the
+    card the kernel reads the wedges as ``td["wedge_words"]``
+    (:func:`smoothmesh_torch.device.pack_wedges`), not ``wedge_prev``,
+    ``wedge_next`` and ``point_faces_mask``."""
     dev = points.device
     if dev.type == "cpu":
         return freeze_constraints_plain(
@@ -156,24 +159,23 @@ def freeze_constraints(points, proposed, td, min_edge_length,
         raise ValueError(f"freeze_constraints: no kernel for {dev}")
     n = points.shape[0]
     pp, ppm = td["point_points"], td["point_points_mask"]
-    pfm, wprev, wnext = (td["point_faces_mask"], td["wedge_prev"],
-                         td["wedge_next"])
-    wp, wf = pp.shape[1], pfm.shape[1]
+    words = td["wedge_words"]
+    wp, wf = pp.shape[1], words.shape[1]
     kernels.check(points, "points", torch.float32, (n, 3), dev)
     kernels.check(proposed, "proposed", torch.float32, (n, 3), dev)
     kernels.check(pp, "point_points", torch.int32, (n, wp), dev)
     kernels.check(ppm, "point_points_mask", torch.bool, (n, wp), dev)
-    kernels.check(pfm, "point_faces_mask", torch.bool, (n, wf), dev)
-    kernels.check(wprev, "wedge_prev", torch.int32, (n, wf), dev)
-    kernels.check(wnext, "wedge_next", torch.int32, (n, wf), dev)
+    kernels.check(words, "wedge_words", torch.int16, (n, wf), dev)
     kernels.check(frozen, "frozen", torch.bool, (n,), dev)
+    if words.data_ptr() % 8:
+        raise ValueError("wedge_words: not 8-byte aligned")
     out = torch.empty((n,), dtype=torch.bool, device=dev)
     kernels.FREEZE.launch(
         points.data_ptr(), proposed.data_ptr(), pp.data_ptr(),
-        ppm.data_ptr(), pfm.data_ptr(), wprev.data_ptr(), wnext.data_ptr(),
-        frozen.data_ptr(), n, wp, wf, float(min_edge_length),
-        int(bool(total_min_freeze)), math.cos(min_angle_rad),
-        int(bool(edge_angle_constraint)), out.data_ptr())
+        ppm.data_ptr(), words.data_ptr(), frozen.data_ptr(), n, wp, wf,
+        float(min_edge_length), int(bool(total_min_freeze)),
+        math.cos(min_angle_rad), int(bool(edge_angle_constraint)),
+        out.data_ptr())
     return out
 
 
@@ -311,15 +313,17 @@ def point_face_angles_plain(edge_u, td):
 
 
 def edge_face_angles(points, means, cell_ctrs, td):
-    """Per-edge u-space min/max face angle (K5): -> (E, 2) float."""
+    """Per-edge u-space min/max face angle (K5): -> (E, 2) float.  On
+    the card the kernel reads the cell slots as ``td["edge_cell_words"]``
+    (:func:`smoothmesh_torch.device.pack_edge_cells`), not
+    ``edge_cell_f0``, ``edge_cell_f1`` and ``edge_cells_mask``."""
     dev = points.device
     if dev.type == "cpu":
         return edge_face_angles_plain(points, means, cell_ctrs, td)
     if dev.type != "cuda":
         raise ValueError(f"edge_face_angles: no kernel for {dev}")
     edges, ef, ec = td["edges"], td["edge_faces"], td["edge_cells"]
-    f0, f1, cm = (td["edge_cell_f0"], td["edge_cell_f1"],
-                  td["edge_cells_mask"])
+    words = td["edge_cell_words"]
     n_edges, wf = ef.shape
     wc = ec.shape[1]
     kernels.check(points, "points", torch.float32, (points.shape[0], 3), dev)
@@ -329,14 +333,12 @@ def edge_face_angles(points, means, cell_ctrs, td):
     kernels.check(edges, "edges", torch.int32, (n_edges, 2), dev)
     kernels.check(ef, "edge_faces", torch.int32, (n_edges, wf), dev)
     kernels.check(ec, "edge_cells", torch.int32, (n_edges, wc), dev)
-    kernels.check(f0, "edge_cell_f0", torch.int32, (n_edges, wc), dev)
-    kernels.check(f1, "edge_cell_f1", torch.int32, (n_edges, wc), dev)
-    kernels.check(cm, "edge_cells_mask", torch.bool, (n_edges, wc), dev)
+    kernels.check(words, "edge_cell_words", torch.int16, (n_edges, wc), dev)
     out = torch.empty((n_edges, 2), dtype=torch.float32, device=dev)
     kernels.FACE_ANGLES.launch(
         points.data_ptr(), means.data_ptr(), cell_ctrs.data_ptr(),
-        edges.data_ptr(), ef.data_ptr(), ec.data_ptr(), f0.data_ptr(),
-        f1.data_ptr(), cm.data_ptr(), n_edges, wf, wc, out.data_ptr())
+        edges.data_ptr(), ef.data_ptr(), ec.data_ptr(), words.data_ptr(),
+        n_edges, wf, wc, out.data_ptr())
     return out
 
 

@@ -274,7 +274,10 @@ def test_unsupported_configurations_raise():
     """Layers and boundary smoothing run; what raises is a target
     surface that does not cover the smoothing surface, under
     ray_miss_fatal (the reference aborts there); without it the missed
-    points stay frozen."""
+    points stay frozen.  After the miss, ``step`` keeps the points and
+    counts the iteration (as the JAX ``step``); ``steps`` commits the
+    offending iteration and counts it, and leaves the points and the
+    count of the JAX ``steps`` (one JAX smoother, float64)."""
     mesh = hex_block(n=(4, 4, 4), patches=ttc.TOP_PATCHES)
     # the reference's defaults (face angle on) construct and step
     st = Smoother(mesh, SmoothingParams(), device="cpu")
@@ -300,6 +303,33 @@ def test_unsupported_configurations_raise():
             with pytest.raises(RuntimeError, match="surface intersection"):
                 st.step()
             np.testing.assert_array_equal(st.denormalize(), before)
+            assert st._iteration == 1
+            # steps against the JAX steps (the face angle off: it builds
+            # quicker and plays no part here)
+            kw = dict(smoothing_patches=("top",), ray_miss_fatal=True,
+                      face_angle_constraint=False)
+            st = Smoother(mesh, SmoothingParams(**kw), device="cpu",
+                          dtype=torch.float64)
+            st.enable_boundary_smoothing(V, half, bpts, bedges)
+            with pytest.raises(RuntimeError, match="surface intersection"):
+                st.steps(2)
+            with pytest.MonkeyPatch.context() as mp:
+                # as _jax_boundary_run: the set-up's normals jitted
+                mp.setattr(jax_driver.geo, "boundary_point_normals",
+                           jax.jit(jax_driver.geo.boundary_point_normals))
+                sj = JaxSmoother(
+                    jax_hex(n=(4, 4, 4), patches=ttc.TOP_PATCHES),
+                    JaxParams(**kw), dtype=np.float64,
+                    use_tile_engine=False)
+                sj.enable_boundary_smoothing(V, half, bpts, bedges)
+                with pytest.raises(RuntimeError,
+                                   match="surface intersection"):
+                    sj.steps(2)
+            assert st._iteration == sj._iteration == 1
+            after = st.denormalize()
+            assert np.abs(after - before).max() > 1e-3     # committed
+            np.testing.assert_allclose(after, sj.denormalize(), rtol=0,
+                                       atol=1e-12)
             continue
         r = st.step()
         after = st.denormalize()
