@@ -8,17 +8,23 @@ Phases, each fatal on failure:
   2. the 128^3 graded, perturbed hex of bench.py (2,146,689 points),
      with the patches of its boundary mode ("top" = zmax, "rest" = the
      other five), and a Smoother with the default parameters (face
-     angle on; boundary points fixed);
+     angle on; boundary points fixed), its set-up split into the
+     spatial reorder, the topology compile and the three word packings
+     (K4's, K5's and K2's);
   3. each kernel against its plain PyTorch version on the card, on the
      main path's inputs: the largest error scaled by the field's
      magnitude (<= 1e-4) or the freeze-mask mismatches (<= 1e-4 * N),
      the kernel's and the plain version's times, and the kernel's
      bound (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s);
-     K4 held bit for bit (no mask mismatch at the main thresholds or at
-     tight ones, 3 x the minimum edge length and 60 degrees) and K5 bit
-     for bit (max abs err 0), with their byte bounds on the packed
-     tables they read and on the old ones, their launch geometry,
-     registers, shared memory and spills; K3's launch, registers and
+     K1, K2 and K5 held bit for bit (no value whose bits differ), K4 bit
+     for bit (no mask mismatch at the main thresholds or at tight ones,
+     3 x the minimum edge length and 60 degrees), K2, K4 and K5 with
+     their byte bounds on the packed words they read and on the old
+     tables, the four with their launch geometry, registers, shared
+     memory and spills; K1 and K2 also bit for bit on their other paths
+     and branches (rows wider and narrower than their register paths,
+     degenerate faces, flat and inverted cells, sums below the range in
+     which they divide without a check); K3's launch, registers and
      the points that ran its share-a-cell test (those with a positive
      blend fraction and two closest neighbours);
      then the face-angle fixed point at 128^3 under a band that bites
@@ -54,7 +60,8 @@ Phases, each fatal on failure:
      boundary configuration also every residual below 1 and the points
      within 1e-3 at the end); under the four bands K4 and K5 also held
      bit for bit against their plain versions on every iteration's
-     inputs (K4 at the main and the tight thresholds);
+     inputs (K4 at the main and the tight thresholds), and K1, K2, K4
+     and K5 likewise in the boundary configuration;
   3b. K7 (the table gather) against its plain version at the two 128^3
      shapes, point_cells (C = 3) and cell_faces (C = 4), bit-equal over
      the whole output, masked slots included; its time, its bytes bound
@@ -75,7 +82,8 @@ Phases, each fatal on failure:
      negative volume in the report, the written time directory reads
      back with every point, and every kernel (K1-K8) launched during
      the call; the wall time split into read, set-up (topology compile,
-     upload, classification), smoothing, report and write;
+     upload, classification), smoothing, report and write, and the
+     set-up into its parts as in phase 2;
   8. one JSON line of the kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -131,6 +139,16 @@ K4_SLOT_BYTES, K5_SLOT_BYTES = 36, 16
 #: what K4's plain version reads that the card's default path does not
 #: stage (K4 reads the packed wedge words instead)
 K4_PLAIN_KEYS = ("point_faces_mask", "wedge_prev", "wedge_next")
+#: the same for K2 (it reads the cell-face words)
+K2_PLAIN_KEYS = ("owner", "cell_faces", "cell_faces_mask")
+#: K1's and K2's blocks and the row widths of their register paths
+#: (kThreads, kRowW in csrc/face_geometry.cu and csrc/cell_centres.cu)
+K1_THREADS = K2_THREADS = 256
+K1_ROW_W, K2_ROW_W = 4, 6
+#: x of the points of K1's and K2's '/' edge case: a face or cell all of
+#: whose points have it sums to less than 2^-60, outside the range in
+#: which the kernels divide without a check
+TINY_X = 1e-20
 #: tight freeze thresholds (x min edge length, degrees): they freeze
 #: many points of the bench meshes where the main path's freeze few
 TIGHT_FREEZE = (3.0, 60.0)
@@ -265,35 +283,49 @@ def resources_of(kernel, marker: str):
 
 
 def with_plain_tables(td, topo) -> dict:
-    """``td`` and the tables K4's plain version reads that the card's
-    path does not stage (K4 reads the packed wedge words)."""
+    """``td`` and the tables K2's and K4's plain versions read that the
+    card's path does not stage (K2 reads the cell-face words, K4 the
+    packed wedge words)."""
     from smoothmesh_torch.device import to_device
 
-    missing = [k for k in K4_PLAIN_KEYS if k not in td]
+    missing = [k for k in K2_PLAIN_KEYS + K4_PLAIN_KEYS if k not in td]
     return {**td, **(to_device(topo, "cuda", missing) if missing else {})}
 
 
-def exact_k4_k5_stages(stats: dict):
-    """The plain stages, holding K4 and K5 bit for bit against their
-    plain versions on every iteration's inputs: K4 at the iteration's
+def bits_differing(got, want) -> int:
+    """float32 values of ``got`` whose bits differ from ``want``'s."""
+    return sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+               for g, w in zip(got, want))
+
+
+def exact_stages(stats: dict):
+    """The plain stages, holding K1, K2, K4 and K5 bit for bit against
+    their plain versions on every iteration's inputs: K1 on the
+    iteration's points, K2 on its face geometry, K4 at the iteration's
     thresholds and at TIGHT_FREEZE, K5 on the iteration's face means
     and cell centres (also where the face angle is off).  Counts into
-    ``stats``: K4 mask mismatches, K5 values not bit-equal, K5's max
-    abs err, points frozen at the tight thresholds."""
+    ``stats``: K1 and K2 values not bit-equal, K4 mask mismatches, K5
+    values not bit-equal, K5's max abs err, points frozen at the tight
+    thresholds."""
+    from smoothmesh_torch import geometry as geo
     from smoothmesh_torch.driver import PLAIN_STAGES, Stages
     from smoothmesh_torch.ops import constraints as con
 
     seen = {}
-    for k in ("k4_mismatches", "k4_tight_frozen", "k5_bits", "calls"):
+    for k in ("k1_bits", "k2_bits", "k4_mismatches", "k4_tight_frozen",
+              "k5_bits", "calls"):
         stats.setdefault(k, 0)
     stats.setdefault("k5_max_abs_err", 0.0)
 
     def face_geometry(*a):
         seen["fg"] = PLAIN_STAGES.face_geometry(*a)
+        stats["k1_bits"] += bits_differing(geo.face_centres_areas(*a),
+                                           seen["fg"])
         return seen["fg"]
 
     def cell_centres_vols(*a):
         out = PLAIN_STAGES.cell_centres_vols(*a)
+        stats["k2_bits"] += bits_differing(geo.cell_centres_vols(*a), out)
         seen["cc"] = out[0]
         return out
 
@@ -318,6 +350,87 @@ def exact_k4_k5_stages(stats: dict):
     return Stages(face_geometry, cell_centres_vols, PLAIN_STAGES.predictor,
                   freeze, PLAIN_STAGES.face_angles_per_point,
                   PLAIN_STAGES.ray_cast)
+
+
+def k1_k2_edge_cases(pts, fp, fm, fn, fg, td, td_p) -> dict:
+    """K1 and K2 against their plain versions, bit for bit, on the paths
+    the main inputs do not take: rows wider and narrower than the
+    register paths' (face and cell rows padded to width 40, face rows
+    cut to 3 points, cell rows to 5 faces: the general paths), 2,000
+    points moved to x = TINY_X (faces and cells among
+    them sum to less than 2^-60, so the kernels redo the division with
+    '/'; faces across x collapse, area <= ROOT_VSMALL, and take the
+    vertex mean), every area vector negated (negative volumes: '/'
+    again) and the first 1,000 cells' area vectors zeroed (|vol| <=
+    VSMALL: the centre estimate)."""
+    from smoothmesh_torch import geometry as geo
+
+    out = {}
+
+    def k1(name, args, extra=None):
+        got = geo.face_centres_areas(*args)
+        want = geo.face_centres_areas_plain(*args)
+        bits = bits_differing(got, want)
+        require(bits == 0, f"K1 ({name}): {bits} values not bit-equal")
+        out[f"K1 {name}"] = dict(values_not_bit_equal=bits, **(extra or {}))
+        return want
+
+    def k2(name, fg_, words=None, cf=None, cfm=None, extra=None):
+        td_k = td if words is None else {**td, "cell_face_words": words}
+        tdp = td_p if cf is None else {**td_p, "cell_faces": cf,
+                                       "cell_faces_mask": cfm}
+        got = geo.cell_centres_vols(fg_, td_k)
+        want = geo.cell_centres_vols_plain(fg_, tdp)
+        bits = bits_differing(got, want)
+        require(bits == 0, f"K2 ({name}): {bits} values not bit-equal")
+        out[f"K2 {name}"] = dict(values_not_bit_equal=bits, **(extra or {}))
+        return want
+
+    pad = 40 - fp.shape[1]
+    k1("face rows padded to width 40", (
+        pts, torch.nn.functional.pad(fp, (0, pad)),
+        torch.nn.functional.pad(fm, (0, pad)), fn))
+    k1("face rows cut to width 3", (
+        pts, fp[:, :3].contiguous(), fm[:, :3].contiguous(),
+        fn.clamp_max(3)))
+    tiny = pts.clone()
+    tiny[:2000, 0] = TINY_X
+    fg_t = geo.face_centres_areas_plain(tiny, fp, fm, fn)
+    slow = ((fg_t.means.abs() < 2.0 ** -60) & (fg_t.means != 0)).any(1)
+    flat = (fg_t.areas == 0).all(1)
+    require(int(slow.sum()) > 0 and int(flat.sum()) > 0,
+            f"K1 (x = {TINY_X}): {int(slow.sum())} faces on the '/' path, "
+            f"{int(flat.sum())} degenerate")
+    k1(f"2000 points at x = {TINY_X}", (tiny, fp, fm, fn),
+       dict(faces_on_the_slow_path=int(slow.sum()),
+            degenerate_faces=int(flat.sum())))
+
+    cfw, cf, cfm = (td["cell_face_words"], td_p["cell_faces"],
+                    td_p["cell_faces_mask"])
+    pad = 40 - cfw.shape[1]
+    k2("cell rows padded to width 40", fg,
+       torch.nn.functional.pad(cfw, (0, pad), value=-1),
+       torch.nn.functional.pad(cf, (0, pad)),
+       torch.nn.functional.pad(cfm, (0, pad)))
+    k2("cell rows cut to width 5", fg, cfw[:, :5].contiguous(),
+       cf[:, :5].contiguous(), cfm[:, :5].contiguous())
+    cc_t, _ = geo.cell_centres_vols_plain(fg_t, td_p)
+    slow = ((cc_t.abs() < 2.0 ** -60) & (cc_t != 0)).any(1)
+    require(int(slow.sum()) > 0, f"K2 (x = {TINY_X}): no cell on the '/' "
+            "path")
+    k2(f"the faces of 2000 points at x = {TINY_X}", fg_t,
+       extra=dict(cells_on_the_slow_path=int(slow.sum())))
+    neg = geo.FaceGeometry(fg.centres, -fg.areas, fg.means)
+    _, vol = k2("every area vector negated", neg)
+    require(bool((vol < 0).all()), "K2: negated areas left a positive volume")
+    zero = fg.areas.clone()
+    zero[cf[:1000][cfm[:1000]].long()] = 0.0
+    _, vol = k2("the first 1000 cells' area vectors zeroed",
+                geo.FaceGeometry(fg.centres, zero, fg.means))
+    require(bool((vol[:1000] == 0).all()), "K2: a zeroed cell has a volume")
+    for k, v in out.items():
+        print(f"{k}: bit-equal to its plain version ({v})", flush=True)
+    return out
 
 
 def k4_k5_edge_cases(pts, prop, means, cc, td_p, freeze_args) -> dict:
@@ -622,8 +735,7 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
             f"to the dome went from {err_before} to {err_after}")
     fgn = geo.face_centres_areas(sb.points, td["face_points"],
                                  td["face_mask"], td["face_npoints"])
-    _, vol = geo.cell_centres_vols(fgn, td["owner"], td["cell_faces"],
-                                   td["cell_faces_mask"])
+    _, vol = geo.cell_centres_vols(fgn, td)
     vmin = float(vol.min())
     require(vmin > 0, f"cell volume {vmin} at the end of the boundary path")
     walls = [r.wall_ms for r in steps]
@@ -818,6 +930,25 @@ def timed(timers: dict, cls, name: str, key: str, out=None):
         setattr(cls, name, orig)
 
 
+@contextlib.contextmanager
+def setup_timers():
+    """Time the host set-up's parts: the spatial reorder, the topology
+    compile and the three word packings -> {part: seconds}."""
+    from smoothmesh_torch import device, driver
+
+    timers = {}
+    with contextlib.ExitStack() as stack:
+        for mod, name, key in (
+                (driver, "permute_mesh", "reorder"),
+                (driver, "compile_topology", "topology compile"),
+                (device, "pack_wedges", "pack_wedges"),
+                (device, "pack_edge_cells", "pack_edge_cells"),
+                (device, "pack_cell_faces", "pack_cell_faces")):
+            timers[key] = 0.0
+            stack.enter_context(timed(timers, mod, name, key))
+        yield timers
+
+
 def cli_phase(mesh, smi: str) -> dict:
     """Phase 7: the port's CLI on the 128^3 bench mesh as a binary case,
     with boundary smoothing, layers and -checkMesh -> launch counts."""
@@ -860,6 +991,7 @@ def cli_phase(mesh, smi: str) -> dict:
                     (FoamCase, "write_label_io_list", "write", None),
                     (Smoother, "quality", "report", reports)):
                 stack.enter_context(timed(timers, cls, name, key, keep))
+            parts = stack.enter_context(setup_timers())
             stack.enter_context(contextlib.redirect_stdout(out))
             t0 = time.perf_counter()
             rc = cli.main(args)
@@ -894,8 +1026,13 @@ def cli_phase(mesh, smi: str) -> dict:
           + f"; {sum(split.values()):.2f} s in these parts; launches "
           + ", ".join(f"{k.name.split()[0]} {n}" for k, n in
                       launches.items()), flush=True)
+    print("CLI set-up split: " + ", ".join(f"{k} {v:.2f} s"
+                                           for k, v in parts.items())
+          + f", the rest {split['setup'] - sum(parts.values()):.2f} s "
+          "(upload, mesh stats, layer maps, boundary classification)",
+          flush=True)
     return dict(launches=launches, wall_s=t_cli, split_s=split,
-                report=reports[0])
+                setup_split_s=parts, report=reports[0])
 
 
 def main() -> int:
@@ -939,13 +1076,16 @@ def main() -> int:
     t_mesh = time.perf_counter() - t0
     params = SmoothingParams(centroidal_iters=MAIN_ITERS, rel_tol=0.0)
     t0 = time.perf_counter()
-    sm = Smoother(mesh, params, device="cuda")
+    with setup_timers() as t_parts:
+        sm = Smoother(mesh, params, device="cuda")
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     topo, td, N = sm.topo, sm.td, sm.topo.n_points
     print(f"mesh: {MAIN_SIDE}^3 hex, {N} points, {topo.n_cells} cells, "
           f"{topo.n_faces} faces; generated in {t_mesh:.1f} s, "
-          f"Smoother set up (reorder, topology, upload) in {t_setup:.1f} s",
+          f"Smoother set up in {t_setup:.2f} s: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in t_parts.items())
+          + f", the rest {t_setup - sum(t_parts.values()):.2f} s",
           flush=True)
     fa_bytes = nbytes(*(td[k] for k in FACE_ANGLE_KEYS))
     print(f"device topology: {nbytes(*td.values()) / 1e9:.3f} GB, of "
@@ -958,10 +1098,11 @@ def main() -> int:
     min_edge = p.min_edge_length * sm._scale
     pts = sm.points
     fp, fm, fn = td["face_points"], td["face_mask"], td["face_npoints"]
-    own, cf, cfm = td["owner"], td["cell_faces"], td["cell_faces_mask"]
     pc, pcm = td["point_cells"], td["point_cells_mask"]
     pp, ppm = td["point_points"], td["point_points_mask"]
-    td_p = with_plain_tables(td, topo)      # + K4's plain version's tables
+    td_p = with_plain_tables(td, topo)  # + K2's, K4's plain versions' tables
+    own, cf, cfm = td_p["owner"], td_p["cell_faces"], td_p["cell_faces_mask"]
+    cfw = td["cell_face_words"]
     pfm, wpv, wnx = (td_p["point_faces_mask"], td_p["wedge_prev"],
                      td_p["wedge_next"])
     words = td["wedge_words"]
@@ -969,7 +1110,7 @@ def main() -> int:
     none = torch.zeros(N, dtype=torch.bool, device=sm.device)
 
     fg_p = geo.face_centres_areas_plain(pts, fp, fm, fn)
-    cc_p, vol_p = geo.cell_centres_vols_plain(fg_p, own, cf, cfm)
+    cc_p, vol_p = geo.cell_centres_vols_plain(fg_p, td_p)
     prop_p, curmin_p = smo.predictor_plain(pts, cc_p, td, max_step,
                                            p.rel_step_frac, False)
 
@@ -1056,13 +1197,12 @@ def main() -> int:
         #           fp32 operations)
         (lambda: geo.face_centres_areas(pts, fp, fm, fn),
          lambda: geo.face_centres_areas_plain(pts, fp, fm, fn),
-         check_fields, fg_p,
+         check_exact, fg_p,
          (nbytes(pts, fp, fn) + 3 * nbytes(fg_p.centres), 40 * n_fv)),
-        (lambda: geo.cell_centres_vols(fg_p, own, cf, cfm),
-         lambda: geo.cell_centres_vols_plain(fg_p, own, cf, cfm),
-         check_fields, (cc_p, vol_p),
-         (nbytes(fg_p.centres, fg_p.areas, own, cf, cfm, cc_p, vol_p),
-          28 * n_cf)),
+        (lambda: geo.cell_centres_vols(fg_p, td),
+         lambda: geo.cell_centres_vols_plain(fg_p, td_p),
+         check_exact, (cc_p, vol_p),
+         (nbytes(fg_p.centres, fg_p.areas, cfw, cc_p, vol_p), 28 * n_cf)),
         (lambda: smo.predictor(pts, cc_p, td, max_step, p.rel_step_frac,
                                False),
          lambda: smo.predictor_plain(pts, cc_p, td, max_step,
@@ -1108,11 +1248,14 @@ def main() -> int:
             library_ms=None, bytes=work[0], ops=work[1], **extra)
         print(f"{k.name}: {msg}; kernel {ms:.4f} ms, plain {plain_ms:.4f}"
               f" ms, bound {b_ms:.4f} ms ({b_by}) on {kind}", flush=True)
-    # the byte bounds on the unpacked tables the words replace:
-    # wedge_prev, wedge_next and point_faces_mask; edge_cell_f0,
-    # edge_cell_f1 and edge_cells_mask (9 bytes a slot against one
-    # 2-byte word)
+    # the byte bounds on the unpacked tables the words replace: owner,
+    # cell_faces and cell_faces_mask (one 4-byte word a slot against 5
+    # bytes and a 4-byte owner a face); wedge_prev, wedge_next and
+    # point_faces_mask; edge_cell_f0, edge_cell_f1 and edge_cells_mask
+    # (9 bytes a slot against one 2-byte word)
     for k, old_bytes in (
+            (kernels.CELL_CENTRES, nbytes(fg_p.centres, fg_p.areas, own, cf,
+                                          cfm, cc_p, vol_p)),
             (kernels.FREEZE, nbytes(pts, prop_p, pp, ppm, pfm, wpv, wnx, none,
                                     frz_p)),
             (kernels.FACE_ANGLES, nbytes(pts, fg_p.means, cc_p, edges, ef, ec,
@@ -1141,6 +1284,30 @@ def main() -> int:
               f"bytes of dynamic shared memory a block; {regs} registers, "
               f"{smem} bytes static shared, {spill} bytes spilled",
               flush=True)
+    # K1 and K2: the path the main inputs take (template <bool kRow>:
+    # the register path for rows of exactly its width, else the general)
+    for k, name, threads, width, row_w, rows, unit in (
+            (kernels.FACE_GEOMETRY, "face_geometry_kernel", K1_THREADS,
+             fp.shape[1], K1_ROW_W, topo.n_faces, "face"),
+            (kernels.CELL_CENTRES, "cell_centres_kernel", K2_THREADS,
+             cfw.shape[1], K2_ROW_W, topo.n_cells, "cell")):
+        regs, smem, spill = resources_of(
+            k, f"{name}ILb{int(width == row_w)}E")
+        results[k]["launch"] = dict(
+            blocks=-(-rows // threads), threads=threads,
+            path="register row" if width == row_w else "general",
+            row_width=width, registers=regs, static_shared_bytes=smem,
+            spilled_bytes=spill)
+        print(f"{k.name} launch at {MAIN_SIDE}^3: {-(-rows // threads)} "
+              f"blocks of {threads} threads, one {unit} a thread, rows of "
+              f"{width} ({results[k]['launch']['path']} path); {regs} "
+              f"registers, {smem} bytes static shared, {spill} bytes "
+              "spilled", flush=True)
+    edge_cases = k1_k2_edge_cases(pts, fp, fm, fn, fg_p, td, td_p)
+    for k, tag in ((kernels.FACE_GEOMETRY, "K1"),
+                   (kernels.CELL_CENTRES, "K2")):
+        results[k]["edge_cases"] = {n: v for n, v in edge_cases.items()
+                                    if n.startswith(tag)}
     n_share = int(smo.share_test_mask(pts, td).sum())
     regs, smem, spill = resources_of(kernels.PREDICTOR, "predictor_kernel")
     results[kernels.PREDICTOR].update(
@@ -1160,7 +1327,7 @@ def main() -> int:
     for k, tag in ((kernels.FREEZE, "K4"), (kernels.FACE_ANGLES, "K5")):
         results[k]["edge_cases"] = {n: v for n, v in edge_cases.items()
                                     if n.startswith(tag)}
-    results[kernels.TABLE_GATHER] = gather_phase(td, cc_p, fg_p, smi)
+    results[kernels.TABLE_GATHER] = gather_phase(td_p, cc_p, fg_p, smi)
 
     # the face-angle fixed point (plain PyTorch, as in the JAX package)
     # under a band that bites, with the current angles from K5/K6 (the
@@ -1199,7 +1366,7 @@ def main() -> int:
           f"{fa_mism} masks differ; {fa_ms:.2f} ms (host clock, "
           f"synchronized) on {smi}", flush=True)
     del fg_p, cc_p, vol_p, prop_p, curmin_p, frz_p, ue_p, up_p, cur_k, cur_p
-    del td_p, pfm, wpv, wnx
+    del td_p, pfm, wpv, wnx, own, cf, cfm
 
     # -- 4. the default path through the user's entry point ------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1221,7 +1388,7 @@ def main() -> int:
         print(f"Smoothing iteration={r.iteration} "
               f"nFrozenPoints={r.n_frozen} residual={r.residual:.6g}")
     fg = geo.face_centres_areas(sm.points, fp, fm, fn)
-    _, vol = geo.cell_centres_vols(fg, own, cf, cfm)
+    _, vol = geo.cell_centres_vols(fg, td)
     vmin = float(vol.min())
     require(vmin > 0, f"cell volume {vmin} at the end")
     walls = [r.wall_ms for r in steps]
@@ -1261,7 +1428,7 @@ def main() -> int:
         exact = small_exact[label] = {}
         for i, r in enumerate(rk):
             pts_p, _, res_p, nf_p, _ = iteration_body(
-                pts_p, td_p, sk.params, sk._scale, exact_k4_k5_stages(exact))
+                pts_p, td_p, sk.params, sk._scale, exact_stages(exact))
             res_p, nf_p = float(res_p), int(nf_p)
             where = f"{SMALL_SIDE}^3 {label}, iteration {i + 1}"
             require(abs(r.residual - res_p) < 2e-3,
@@ -1270,15 +1437,18 @@ def main() -> int:
             require(abs(r.n_frozen - nf_p) <= 0.1 * nf_p + 10,
                     f"{where}: nFrozen {r.n_frozen} (kernels) vs {nf_p} "
                     "(plain)")
-        require(exact["calls"] == SMALL_ITERS and exact["k4_mismatches"] == 0
+        require(exact["calls"] == SMALL_ITERS and exact["k1_bits"] == 0
+                and exact["k2_bits"] == 0 and exact["k4_mismatches"] == 0
                 and exact["k5_bits"] == 0 and exact["k4_tight_frozen"] > 0,
-                f"{SMALL_SIDE}^3 {label}: K4 and K5 against their plain "
-                f"versions on each iteration's inputs: {exact}")
+                f"{SMALL_SIDE}^3 {label}: K1, K2, K4 and K5 against their "
+                f"plain versions on each iteration's inputs: {exact}")
         print(f"{SMALL_SIDE}^3 x {SMALL_ITERS}, {label}: kernels and plain "
               f"versions agree (last residual {rk[-1].residual:.6g} vs "
               f"{res_p:.6g}, nFrozen {rk[-1].n_frozen} vs {nf_p}, of "
               f"which {n_bnd} boundary points); on each iteration's "
-              f"inputs K4 {exact['k4_mismatches']} mask mismatches at the "
+              f"inputs K1 {exact['k1_bits']} and K2 {exact['k2_bits']} "
+              f"values not bit-equal, K4 {exact['k4_mismatches']} mask "
+              "mismatches at the "
               f"main and tight thresholds ({exact['k4_tight_frozen']} "
               f"frozen at the tight ones in all), K5 "
               f"{exact['k5_bits']} values not bit-equal, max abs err "
@@ -1295,11 +1465,12 @@ def main() -> int:
     pts_p, nrm_p = sk.points.clone(), sk.normals.clone()
     rk = sk.steps(SMALL_ITERS)
     td_p = with_plain_tables(sk.td, sk.topo)
+    exact = small_exact["boundary path"] = {}
     for i, r in enumerate(rk):
         pts_p, nrm_p, res_p, nf_p, nm_p = iteration_body(
-            pts_p, td_p, sk.params, sk._scale, PLAIN_STAGES, normals=nrm_p,
-            smoothing_surface=sk.smoothing_surface, layer=sk.layer,
-            bnd=sk.bnd)
+            pts_p, td_p, sk.params, sk._scale, exact_stages(exact),
+            normals=nrm_p, smoothing_surface=sk.smoothing_surface,
+            layer=sk.layer, bnd=sk.bnd)
         res_p, nf_p, nm_p = float(res_p), int(nf_p), int(nm_p)
         where = f"{SMALL_SIDE}^3 boundary path, iteration {i + 1}"
         require(abs(r.residual - res_p) < 2e-3,
@@ -1314,12 +1485,20 @@ def main() -> int:
     moved = float((pts_p - sk.points).abs().max())
     require(moved < BND_POINT_TOL, f"{SMALL_SIDE}^3 boundary path: points "
             f"{moved} apart at the end (kernels vs plain)")
+    require(exact["calls"] == SMALL_ITERS and exact["k1_bits"] == 0
+            and exact["k2_bits"] == 0 and exact["k4_mismatches"] == 0
+            and exact["k5_bits"] == 0,
+            f"{SMALL_SIDE}^3 boundary path: K1, K2, K4 and K5 against "
+            f"their plain versions on each iteration's inputs: {exact}")
     print(f"{SMALL_SIDE}^3 x {SMALL_ITERS}, boundary path (layers + boundary"
           f" smoothing, max step {SMALL_BND_MAX_STEP}): kernels and plain "
           f"versions agree (last residual {rk[-1].residual:.6g} vs "
           f"{res_p:.6g}, nFrozen {rk[-1].n_frozen} vs {nf_p}, ray misses "
           f"{rk[-1].n_ray_miss} vs {nm_p}; largest point difference at the "
-          f"end {moved:.3g} < {BND_POINT_TOL}, normalized units)", flush=True)
+          f"end {moved:.3g} < {BND_POINT_TOL}, normalized units); on each "
+          f"iteration's inputs K1 {exact['k1_bits']}, K2 {exact['k2_bits']}"
+          f" and K5 {exact['k5_bits']} values not bit-equal, K4 "
+          f"{exact['k4_mismatches']} mask mismatches", flush=True)
 
     # -- 7. the CLI at full size ------------------------------------------
     del small, sk, pts_p, nrm_p, td_p
@@ -1334,7 +1513,8 @@ def main() -> int:
         results[k]["launches_default_path"] = launches[k]
         results[k]["launches_boundary_path"] = bnd["launches"][k]
         results[k]["launches_cli"] = cli["launches"][k]
-    for k in (kernels.FREEZE, kernels.FACE_ANGLES):
+    for k in (kernels.FACE_GEOMETRY, kernels.CELL_CENTRES, kernels.FREEZE,
+              kernels.FACE_ANGLES):
         results[k]["small_runs_exact"] = small_exact
     results[kernels.TABLE_GATHER]["quality_report_ms"] = quality["ms"]
     results[kernels.TABLE_GATHER]["quality_report_plain_ms"] = \

@@ -7,7 +7,8 @@ the default parameters (face angle on, boundary points fixed),
 ``Smoother.steps``.  After 4 warm-up iterations it runs ``--reps``
 times ``steps(--iters)`` and prints, for each, the median and mean of
 the iterations' wall times (one host read each, as ``StepResult``
-records them), then one JSON line with the card's name and power limit.
+records them) and the peak device memory, with the device topology's
+size, then one JSON line with the card's name and power limit.
 
 With ``--boundary`` it times the boundary cell instead: the same mesh
 in bench.py's boundary configuration (layers and boundary smoothing on
@@ -94,20 +95,25 @@ def main() -> int:
     if args.boundary:
         sm.enable_boundary_smoothing(*bench_dome_geometry()[1:])
     cell = "boundary" if args.boundary else "default"
+    topo_gb = sum(t.numel() * t.element_size() for t in sm.td.values()) / 1e9
     sm.steps(4)
     torch.cuda.synchronize()
     reps = []
     for _ in range(args.reps):
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         walls = [r.wall_ms for r in sm.steps(args.iters)]
         reps.append({"median_ms": float(np.median(walls)),
                      "mean_ms": float(np.mean(walls)),
-                     "seconds": time.perf_counter() - t0})
+                     "seconds": time.perf_counter() - t0,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
         print(f"{root}, {cell} cell: {args.iters} iterations, median "
               f"{reps[-1]['median_ms']:.4f} ms, mean "
-              f"{reps[-1]['mean_ms']:.4f} ms on {smi}", flush=True)
+              f"{reps[-1]['mean_ms']:.4f} ms, peak device memory "
+              f"{reps[-1]['peak_gb']:.3f} GB, device topology "
+              f"{topo_gb:.3f} GB on {smi}", flush=True)
     print(json.dumps({"root": root, "cell": cell, "card": smi,
-                      "iters": args.iters,
+                      "iters": args.iters, "topology_gb": topo_gb,
                       "reps": reps}))
     return 0
 

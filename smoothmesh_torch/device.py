@@ -5,7 +5,7 @@ flat dict of torch tensors (the "device topology"): int32 index tables
 and bool masks, under the same key names as the JAX package's device
 topology, consumed by :mod:`smoothmesh_torch.geometry` and
 :mod:`smoothmesh_torch.ops`; plus, only where asked for by name, the
-int16 words of the K4 and K5 kernels (:data:`PACKED_KEYS`).
+packed words of the K2, K4 and K5 kernels (:data:`PACKED_KEYS`).
 """
 
 from __future__ import annotations
@@ -48,10 +48,31 @@ def _fa_packed(topo: MeshTopology) -> Dict[str, np.ndarray]:
             "pe_flat": pef.astype(np.int32)}
 
 
-#: Packed int16 tables, staged only when ``to_device`` is asked for them:
-#: K4's wedges (:func:`pack_wedges`) and K5's cell slots
-#: (:func:`pack_edge_cells`).
-PACKED_KEYS = frozenset({"wedge_words", "edge_cell_words"})
+#: Packed tables, staged only when ``to_device`` is asked for them:
+#: K2's cell-face words (int32, :func:`pack_cell_faces`), K4's wedges
+#: and K5's cell slots (int16, :func:`pack_wedges`,
+#: :func:`pack_edge_cells`).
+PACKED_KEYS = frozenset({"cell_face_words", "wedge_words",
+                         "edge_cell_words"})
+#: the largest face id a cell-face word holds
+MAX_CELL_FACE = (1 << 30) - 1
+
+
+def pack_cell_faces(owner, cell_faces, cell_faces_mask) -> np.ndarray:
+    """K2's cell-face words: per (cell, slot) one int32, the face id with
+    bit 30 set where the cell is the face's neighbour (its pyramid's
+    sign is -1), and -1 on padded slots.  The JAX tile engine's stage-C
+    meta word (``smoothmesh_tpu/ops/tiledstep.py:161-176``: the sign in
+    bit 14, the mask in bit 15) at 32 bits, with the face id in place
+    of the pool code."""
+    cf = np.where(cell_faces_mask, cell_faces, 0).astype(np.int64)
+    if cf.size and int(cf.max()) > MAX_CELL_FACE:
+        raise ValueError(f"face id {int(cf.max())} >= 2^30: it does not "
+                         "fit 30 bits of K2's cell-face word")
+    cells = np.arange(cf.shape[0], dtype=np.int64)[:, None]
+    neg = np.asarray(owner)[cf] != cells
+    return np.where(cell_faces_mask, cf | (neg.astype(np.int64) << 30),
+                    -1).astype(np.int32)
 
 
 def pack_wedges(point_points, point_points_mask, point_faces_mask,
@@ -102,8 +123,9 @@ def to_device(topo: MeshTopology, device=None,
     """Stage topology arrays (int32 indices, bool masks) on ``device``.
 
     ``keys``: optional iterable restricting which arrays are staged
-    (the driver stages only the tables its iteration reads); the int16
-    :data:`PACKED_KEYS` are staged only when named there.
+    (``Smoother`` stages only the tables its iteration reads); the
+    :data:`PACKED_KEYS` (int32 or int16) are staged only when named
+    there.
     """
     dev = resolve_device(device)
     keys = None if keys is None else frozenset(keys)
@@ -155,6 +177,9 @@ def to_device(topo: MeshTopology, device=None,
     }
     if keys is None or keys & {"pps_signed", "pe_flat"}:
         host.update(_fa_packed(topo))
+    if keys is not None and "cell_face_words" in keys:
+        host["cell_face_words"] = pack_cell_faces(
+            topo.owner, topo.cell_faces, topo.cell_faces_mask)
     if keys is not None and "wedge_words" in keys:
         host["wedge_words"] = pack_wedges(
             topo.point_points, topo.point_points_mask, topo.point_faces_mask,

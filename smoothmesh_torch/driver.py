@@ -52,7 +52,8 @@ from smoothmesh_torch.mesh.tiling import MeshOrders, permute_mesh
 from smoothmesh_torch.mesh.topology import MeshTopology, compile_topology
 from smoothmesh_torch.ops import constraints, raycast, smoothing
 from smoothmesh_torch.params import SmoothingParams
-from smoothmesh_torch.quality import (QUALITY_TD_KEYS, mesh_stats,
+from smoothmesh_torch.quality import (CUDA_QUALITY_TD_KEYS,
+                                     QUALITY_TD_KEYS, mesh_stats,
                                      quality_report)
 
 
@@ -111,11 +112,13 @@ TD_KEYS = frozenset({
     "edge_cell_f1", "point_edges", "point_edges_mask", "pps_signed",
     "pe_flat",
 })
-#: What the kernels read on the card: K4 the packed wedge words in place
-#: of the plain version's wedge tables, K5 the packed cell words beside
-#: the fixed point's edge_cell_f0/f1 and edge_cells_mask.
-CUDA_TD_KEYS = (TD_KEYS - {"point_faces_mask", "wedge_prev", "wedge_next"}
-                | {"wedge_words", "edge_cell_words"})
+#: What the kernels read on the card: K2 the cell-face words in place of
+#: owner, cell_faces and cell_faces_mask, K4 the packed wedge words in
+#: place of the plain version's wedge tables, K5 the packed cell words
+#: beside the fixed point's edge_cell_f0/f1 and edge_cells_mask.
+CUDA_TD_KEYS = (TD_KEYS - {"owner", "cell_faces", "cell_faces_mask",
+                           "point_faces_mask", "wedge_prev", "wedge_next"}
+                | {"cell_face_words", "wedge_words", "edge_cell_words"})
 #: What the boundary point normals add (layers and boundary smoothing);
 #: staged only when one of them is on.
 NORMALS_TD_KEYS = frozenset({"point_faces", "point_faces_mask",
@@ -158,8 +161,7 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
         # stateful normals (reference :2266), from K1's area vectors
         normals, is_sharp = lay.accumulate_point_normals(normals, fg.areas,
                                                          td)
-    cell_ctrs, _ = stages.cell_centres_vols(
-        fg, td["owner"], td["cell_faces"], td["cell_faces_mask"])
+    cell_ctrs, _ = stages.cell_centres_vols(fg, td)
     prop, _ = stages.predictor(points, cell_ctrs, td, max_step,
                                p.rel_step_frac, bnd is not None)
 
@@ -555,7 +557,9 @@ class Smoother:
         """The checkMesh-style report (``quality.quality_report``) of the
         current points, with length- and volume-valued metrics in
         external units."""
-        missing = QUALITY_TD_KEYS - set(self.td)
+        keys = (CUDA_QUALITY_TD_KEYS if self.device.type == "cuda"
+                else QUALITY_TD_KEYS)
+        missing = keys - set(self.td)
         if missing:
             self.td.update(to_device(self.topo, self.device, missing))
         rep = quality_report(self.points, self.td)

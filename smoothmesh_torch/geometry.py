@@ -49,6 +49,24 @@ def norm3(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     return n.unsqueeze(-1) if keepdim else n
 
 
+def slot_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the slot axis (1) in slot order, starting from +0: the
+    kernels' order, so a sum of none or of zeros is +0 as there."""
+    acc = torch.zeros_like(x[:, 0])
+    for w in range(x.shape[1]):
+        acc = acc + x[:, w]
+    return acc
+
+
+def cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cross product over the last axis, each component a*b - c*d as
+    two rounded products and a rounded difference (the kernels')."""
+    ax, ay, az = a.unbind(-1)
+    bx, by, bz = b.unbind(-1)
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], -1)
+
+
 def face_centres_areas_plain(points, face_points, face_mask,
                              face_npoints) -> FaceGeometry:
     dtype = points.dtype
@@ -61,16 +79,16 @@ def face_centres_areas_plain(points, face_points, face_mask,
     m = face_mask[..., None].to(dtype)
     n_pts = face_npoints.to(dtype)[:, None]
 
-    means = (p * m).sum(1) / n_pts                     # vertex average
+    means = slot_sum(p * m) / n_pts                    # vertex average
 
     fc = means[:, None, :]
     c = p + nxt + fc                                   # (F, W, 3)
-    n_vec = torch.linalg.cross(nxt - p, fc - p, dim=-1)
+    n_vec = cross3(nxt - p, fc - p)
     a = norm3(n_vec, keepdim=True)                     # (F, W, 1)
 
-    sum_n = (n_vec * m).sum(1)
-    sum_a = (a * m).sum(1)                             # (F, 1)
-    sum_ac = (a * c * m).sum(1)
+    sum_n = slot_sum(n_vec * m)
+    sum_a = slot_sum(a * m)                            # (F, 1)
+    sum_ac = slot_sum(a * c * m)
 
     good = sum_a[:, 0] > ROOT_VSMALL
     centres = torch.where(
@@ -101,63 +119,67 @@ def face_centres_areas(points, face_points, face_mask,
     return FaceGeometry(*out)
 
 
-def cell_centres_vols_plain(face_geo: FaceGeometry, owner, cell_faces,
-                            cell_faces_mask) -> Tuple[torch.Tensor,
-                                                      torch.Tensor]:
-    cf = cell_faces.long()
+def cell_centres_vols_plain(face_geo: FaceGeometry, td) -> Tuple[
+        torch.Tensor, torch.Tensor]:
+    """K2's plain version, on the tables ``owner``, ``cell_faces`` and
+    ``cell_faces_mask`` of the device topology ``td``."""
+    cf = td["cell_faces"].long()
     f_ctrs = face_geo.centres[cf]                # (C, W, 3)
     f_areas = face_geo.areas[cf]                 # (C, W, 3)
     dtype = f_ctrs.dtype
-    mask = cell_faces_mask.to(dtype)
+    mask = td["cell_faces_mask"].to(dtype)
     m = mask[..., None]
     n_faces = mask.sum(1)[:, None]
 
-    c_est = (f_ctrs * m).sum(1) / n_faces.clamp_min(1.0)
+    c_est = slot_sum(f_ctrs * m) / n_faces.clamp_min(1.0)
 
     # Sign: +1 when this cell owns the face (outward area), else -1
     cell_ids = torch.arange(cf.shape[0], device=cf.device)[:, None]
-    sign = torch.where(owner.long()[cf] == cell_ids, 1.0, -1.0).to(dtype)
+    sign = torch.where(td["owner"].long()[cf] == cell_ids, 1.0,
+                       -1.0).to(dtype)
 
     d = f_ctrs - c_est[:, None, :]
     pyr3vol = sign * dot3(f_areas, d)                       # (C, W)
     pc = 0.75 * f_ctrs + 0.25 * c_est[:, None, :]
 
-    vol3 = (pyr3vol * mask).sum(1)                          # (C,)
-    ctr_num = ((pyr3vol * mask)[..., None] * pc).sum(1)
+    vol3 = slot_sum(pyr3vol * mask)                         # (C,)
+    ctr_num = slot_sum((pyr3vol * mask)[..., None] * pc)
     good = vol3.abs() > VSMALL
     centres = torch.where(
         good[:, None], ctr_num / torch.where(good, vol3, 1.0)[:, None],
         c_est)
-    vols = vol3 / 3.0
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not the IEEE quotient
+    vols = vol3 / torch.full_like(vol3, 3.0)
     return centres, vols
 
 
-def cell_centres_vols(face_geo: FaceGeometry, owner, cell_faces,
-                      cell_faces_mask) -> Tuple[torch.Tensor, torch.Tensor]:
-    """OpenFOAM cell centres and volumes (K2)."""
+def cell_centres_vols(face_geo: FaceGeometry, td) -> Tuple[torch.Tensor,
+                                                           torch.Tensor]:
+    """OpenFOAM cell centres and volumes (K2).  On the card the kernel
+    reads the cell-face words ``td["cell_face_words"]``
+    (:func:`smoothmesh_torch.device.pack_cell_faces`), not ``owner``,
+    ``cell_faces`` and ``cell_faces_mask``."""
     dev = face_geo.centres.device
     if dev.type == "cpu":
-        return cell_centres_vols_plain(face_geo, owner, cell_faces,
-                                       cell_faces_mask)
+        return cell_centres_vols_plain(face_geo, td)
     if dev.type != "cuda":
         raise ValueError(f"cell_centres_vols: no kernel for {dev}")
-    n_cells, width = cell_faces.shape
-    n_faces = owner.shape[0]
+    words = td["cell_face_words"]
+    n_cells, width = words.shape
+    n_faces = face_geo.centres.shape[0]
     kernels.check(face_geo.centres, "face centres", torch.float32,
                   (n_faces, 3), dev)
     kernels.check(face_geo.areas, "face areas", torch.float32,
                   (n_faces, 3), dev)
-    kernels.check(owner, "owner", torch.int32, (n_faces,), dev)
-    kernels.check(cell_faces, "cell_faces", torch.int32, (n_cells, width),
+    kernels.check(words, "cell_face_words", torch.int32, (n_cells, width),
                   dev)
-    kernels.check(cell_faces_mask, "cell_faces_mask", torch.bool,
-                  (n_cells, width), dev)
     centres = torch.empty((n_cells, 3), dtype=torch.float32, device=dev)
     vols = torch.empty((n_cells,), dtype=torch.float32, device=dev)
     kernels.CELL_CENTRES.launch(
         face_geo.centres.data_ptr(), face_geo.areas.data_ptr(),
-        owner.data_ptr(), cell_faces.data_ptr(), cell_faces_mask.data_ptr(),
-        n_cells, width, centres.data_ptr(), vols.data_ptr())
+        words.data_ptr(), n_cells, width, centres.data_ptr(),
+        vols.data_ptr())
     return centres, vols
 
 
@@ -165,8 +187,7 @@ def cell_centres(points, td) -> torch.Tensor:
     """Convenience: cell centres from points + device topology dict."""
     fg = face_centres_areas(points, td["face_points"], td["face_mask"],
                             td["face_npoints"])
-    ctrs, _ = cell_centres_vols(fg, td["owner"], td["cell_faces"],
-                                td["cell_faces_mask"])
+    ctrs, _ = cell_centres_vols(fg, td)
     return ctrs
 
 

@@ -14,13 +14,15 @@ the kernel's launch count.
 
 Arithmetic: ``--fmad=false`` keeps ``a*b+c`` as two rounded operations,
 as the plain PyTorch versions compute it, so the kernels agree with
-them to the last bits except for summation order; K4, K5, K6 and K8
-equal theirs bit for bit.  K1-K3, K6 and K7 are bound by memory traffic
-(K7 only copies).  K4 and K5 are not: the latency of their scattered
+them to the last bits where the sums run in the same order; K1, K2, K4,
+K5, K6, K7 and K8 equal theirs bit for bit (the plain K1 and K2 sum
+their slots in slot order, as the kernels do).  K1-K3, K6 and K7 are
+bound by memory traffic (K7 only copies).  K4 and K5 are not: the latency of their scattered
 gathers sets their pace, and before their redesign each IEEE division's
 range check and slow-path branch did too, so both now divide with the
 compiler's own fast-path sequence and check the operands once per point
-or edge (``csrc/freeze.cu``).  K8 (the ray cast) is bound by its
+or edge (``csrc/freeze.cu``); K1 and K2 divide so too, with one check
+for each three quotients (``smk::div3``).  K8 (the ray cast) is bound by its
 operations.
 """
 
@@ -211,7 +213,7 @@ FACE_GEOMETRY = Kernel(
     "smoothmesh_tpu/ops/tiledstep.py:323")
 CELL_CENTRES = Kernel(
     "K2 cell_centres_vols", "cell_centres.cu", "smk_cell_centres_vols",
-    [P, P, P, P, P, I, I, P, P],
+    [P, P, P, I, I, P, P],
     "smoothmesh_tpu/ops/tiledstep.py:391")
 PREDICTOR = Kernel(
     "K3 predictor", "predictor.cu", "smk_predictor",

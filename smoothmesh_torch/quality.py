@@ -38,6 +38,10 @@ QUALITY_TD_KEYS = frozenset({
     "edge_faces", "edge_cells", "edge_cells_mask", "edge_cell_f0",
     "edge_cell_f1",
 })
+#: what the report reads on the card: K2 reads the cell-face words
+#: (``device.pack_cell_faces``); the rest of the report reads owner,
+#: cell_faces and cell_faces_mask as on the CPU
+CUDA_QUALITY_TD_KEYS = QUALITY_TD_KEYS | {"cell_face_words"}
 
 
 @dataclasses.dataclass
@@ -91,8 +95,7 @@ def quality_report_parts(points, td, face_claim=None, edge_claim=None,
     fg = geo.face_centres_areas(points, td["face_points"], td["face_mask"],
                                 td["face_npoints"])
     mags = geo.norm3(fg.areas)
-    cell_ctrs, vols = geo.cell_centres_vols(
-        fg, td["owner"], td["cell_faces"], td["cell_faces_mask"])
+    cell_ctrs, vols = geo.cell_centres_vols(fg, td)
 
     # Non-orthogonality (internal faces): angle between face area vector
     # and owner->neighbour centre vector

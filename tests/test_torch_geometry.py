@@ -71,8 +71,7 @@ def test_geometry_matches_xla_f64(kind):
     vm = (mesh.points[fp] * fm[..., None]).sum(1) / fm.sum(1)[:, None]
     np.testing.assert_allclose(fg.means.numpy(), vm, rtol=0, atol=1e-12)
 
-    cc, vol = geo.cell_centres_vols(fg, td["owner"], td["cell_faces"],
-                                    td["cell_faces_mask"])
+    cc, vol = geo.cell_centres_vols(fg, td)
     jcc, jvol = jgeo.cell_centres_vols(jfg, jtd["owner"], jtd["cell_faces"],
                                        jtd["cell_faces_mask"])
     np.testing.assert_allclose(cc.numpy(), np.asarray(jcc), rtol=0,
@@ -100,8 +99,7 @@ def test_geometry_matches_pallas_f32(kind):
         np.testing.assert_allclose(got.numpy(),
                                    np.asarray(from_planar(want, F)),
                                    rtol=0, atol=2e-6)
-    cc, vol = geo.cell_centres_vols(fg, td["owner"], td["cell_faces"],
-                                    td["cell_faces_mask"])
+    cc, vol = geo.cell_centres_vols(fg, td)
     assert cc.dtype == torch.float32
     np.testing.assert_allclose(cc.numpy(),
                                np.asarray(from_planar(cc4[:3], C)),
