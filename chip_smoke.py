@@ -3,14 +3,19 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit; build the CUDA kernels (K1-K8,
-     one nvcc per source, all at once; a second run in the same
-     checkout compiles none) and print the build time;
+     one nvcc per source, all at once) and the native topology
+     compiler (g++); a second run in the same checkout compiles none;
+     print the build time;
   2. the 128^3 graded, perturbed hex of bench.py (2,146,689 points),
      with the patches of its boundary mode ("top" = zmax, "rest" = the
      other five), and a Smoother with the default parameters (face
      angle on; boundary points fixed), its set-up split into the
-     spatial reorder, the topology compile and the three word packings
-     (K4's, K5's and K2's);
+     spatial reorder, the native topology compile and the three word
+     packings (K4's, K5's and K2's); the same topology compiled by the
+     numpy path too, for its time: every row of the native tables
+     left-packed, the row counts of the point, face and cell tables
+     and the edge count equal on both paths; everything after this
+     phase uses the native tables;
   3. each kernel against its plain PyTorch version on the card, on the
      main path's inputs: the largest error scaled by the field's
      magnitude (<= 1e-4) or the freeze-mask mismatches (<= 1e-4 * N),
@@ -31,9 +36,18 @@ Phases, each fatal on failure:
      (60/120 degrees), once with the current angles from K5/K6 and once
      from their plain versions: more than 0 points frozen, at most
      1e-4 * N masks differing; its frozen count, sweeps and time;
-  4. the default path: Smoother(...).steps(32) with the defaults, every
-     one of K1-K6 launched once per iteration and K7, K8 never, finite
-     residuals, 0 <= nFrozen <= N and positive cell volumes at the end;
+  4. the default path: Smoother(...).steps(32) with the defaults, once
+     one iteration a dispatch (iter_batch 1) and once from the same
+     start in batches of 16 (SMOOTHMESH_ITER_BATCH unset), each batch
+     16 replays of one iteration captured as a CUDA graph: points and
+     normals bit-equal, residuals, frozen counts and iteration numbers
+     equal; the batched call reads the host exactly twice (counted
+     under torch.cuda.set_sync_debug_mode("warn")) and runs its replays
+     under "error"; in both runs every one of K1-K6 launched once per
+     iteration (through the replays in the batched one) and K7, K8
+     never; finite residuals, 0 <= nFrozen <= N and positive cell
+     volumes at the end; the ms/iteration of both, the capture time and
+     the peak device memory;
   5. the boundary path on the same mesh and compiled topology, in
      bench.py's boundary configuration (layers and boundary smoothing
      on the top patch, min angle 15, ray misses frozen, the k = 64 dome
@@ -48,9 +62,10 @@ Phases, each fatal on failure:
      that ran its share-a-cell test) and K4 with the boundary pass's
      incoming freeze mask (bit for bit) against theirs, and the times of
      the plain-PyTorch boundary stages; then
-     Smoother.steps(32) with every kernel but K7 (K8 too) launched once
-     per iteration, the top points' largest distance to the dome falling,
-     and positive cell volumes;
+     Smoother.steps(32) one iteration a dispatch and in batches of 16,
+     compared as in phase 4, with every kernel but K7 (K8 too) launched
+     once per iteration, the top points' largest distance to the dome
+     falling, and positive cell volumes;
   6. a 32^3 mesh of the same recipe for 8 iterations through the kernels
      and through the plain versions on the card, with the face angle
      off, at the default band, at 60/120 and at 80/100 (which freezes
@@ -61,7 +76,10 @@ Phases, each fatal on failure:
      within 1e-3 at the end); under the four bands K4 and K5 also held
      bit for bit against their plain versions on every iteration's
      inputs (K4 at the main and the tight thresholds), and K1, K2, K4
-     and K5 likewise in the boundary configuration;
+     and K5 likewise in the boundary configuration; each of the five
+     runs batched (16) and again one iteration a dispatch from the
+     same start, bit-equal, with the face-angle stops of the batched
+     run printed (the 60/120 and 80/100 bands take one);
   3b. K7 (the table gather) against its plain version at the two 128^3
      shapes, point_cells (C = 3) and cell_faces (C = 4), bit-equal over
      the whole output, masked slots included; its time, its bytes bound
@@ -81,9 +99,9 @@ Phases, each fatal on failure:
      binary output.  Exit code 0, boundary smoothing enabled, no
      negative volume in the report, the written time directory reads
      back with every point, and every kernel (K1-K8) launched during
-     the call; the wall time split into read, set-up (topology compile,
-     upload, classification), smoothing, report and write, and the
-     set-up into its parts as in phase 2;
+     the call; the wall time split into read, set-up (native topology
+     compile, upload, classification), smoothing, report and write, and
+     the set-up into its parts as in phase 2;
   8. one JSON line of the kernels, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -105,6 +123,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -162,6 +181,9 @@ Q_ASPECT_TOL = 1e-4           # aspect ratio, relative
 Q_SKEW_TOL = 1e-4
 Q_OPEN_TOL = 1e-5
 CLI_ITERS = 8
+#: the iterations a dispatch of Smoother.steps with SMOOTHMESH_ITER_BATCH
+#: unset
+ITER_BATCH = 16
 #: the device tables that the face angle adds (K5, K6, the fixed point)
 FACE_ANGLE_KEYS = ("edges", "edge_faces", "edge_cells", "edge_cells_mask",
                    "edge_cell_f0", "edge_cell_f1", "edge_cell_words",
@@ -712,17 +734,11 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
                                              np.clip(q[:, 1], 0, 1))).max())
 
     err_before = dome_err()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    steps = sb.steps(MAIN_ITERS)
-    t_run = time.perf_counter() - t0
-    launches = {k: k.launches for k in kernels.ALL}
-    require(len(steps) == MAIN_ITERS, f"{len(steps)} iterations ran")
-    for k, n in launches.items():
-        want_n = 0 if k is kernels.TABLE_GATHER else MAIN_ITERS
-        require(n == want_n, f"{k.name} launched {n} times in "
-                f"{MAIN_ITERS} iterations of the boundary path")
+    run = batched_against_one_by_one(
+        sb, MAIN_ITERS, f"boundary path at {MAIN_SIDE}^3", smi,
+        {k: 0 if k is kernels.TABLE_GATHER else MAIN_ITERS
+         for k in kernels.ALL})
+    steps, launches, t_run = run["steps"], run["launches"], run["t_run"]
     for r in steps:
         require(math.isfinite(r.residual), f"residual {r.residual}")
         require(0 <= r.n_frozen <= N, f"nFrozenPoints {r.n_frozen}")
@@ -740,16 +756,16 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
     require(vmin > 0, f"cell volume {vmin} at the end of the boundary path")
     walls = [r.wall_ms for r in steps]
     iter_ms = float(np.mean(walls))
-    print(f"boundary path (layers + boundary smoothing): {MAIN_ITERS} "
-          f"iterations in {t_run:.2f} s; {iter_ms:.3f} ms/iteration (median"
+    print(f"boundary path (layers + boundary smoothing), batched: "
+          f"{MAIN_ITERS} iterations in {t_run:.2f} s; {iter_ms:.3f} "
+          f"ms/iteration (median"
           f" {np.median(walls):.3f}, max {max(walls):.3f} at iteration "
           f"{int(np.argmax(walls)) + 1} of {len(walls)}), "
           f"{N / (iter_ms / 1e3):,.0f} point-updates/s on {smi}; nFrozen "
           f"{steps[0].n_frozen} -> {steps[-1].n_frozen}, ray misses "
           f"{sum(r.n_ray_miss for r in steps)} in all; largest |z - dome|"
           f" over the free top points {err_before:.6g} -> {err_after:.6g};"
-          f" peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; min cell "
+          f" peak device memory {run['peak_gb']:.2f} GB; min cell "
           f"volume {vmin:.4g} (normalized units)", flush=True)
     return dict(record=dict(
         name=kernels.RAYCAST.name, route="cuda",
@@ -758,7 +774,8 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         bytes=work[0], ops=work[1], rays_differing=n_differ,
         random_soup_rays_differing=r_differ, edge_cases=edges,
-        launch=launch), launches=launches, k3_share_test_points=n_share)
+        launch=launch), launches=launches, k3_share_test_points=n_share,
+        ms_one=run["ms_one"], ms_batched=run["ms_batched"])
 
 def gather_phase(td, cell_ctrs, face_geo, smi: str) -> dict:
     """Phase 3b: K7 against its plain version at the two 128^3 shapes ->
@@ -940,13 +957,192 @@ def setup_timers():
     with contextlib.ExitStack() as stack:
         for mod, name, key in (
                 (driver, "permute_mesh", "reorder"),
-                (driver, "compile_topology", "topology compile"),
+                (driver, "compile_topology", "topology compile (native)"),
                 (device, "pack_wedges", "pack_wedges"),
                 (device, "pack_edge_cells", "pack_edge_cells"),
                 (device, "pack_cell_faces", "pack_cell_faces")):
             timers[key] = 0.0
             stack.enter_context(timed(timers, mod, name, key))
         yield timers
+
+
+@contextlib.contextmanager
+def host_reads_and_replays():
+    """Count the host synchronizations (torch's sync debug mode "warn"
+    warns at each) and the CUDA-graph replays, each replay run under
+    "error" (any synchronization in it raises) -> a dict whose
+    "syncs" and "replays" hold the counts after the block."""
+    from smoothmesh_torch import kernels
+
+    seen = {"syncs": 0, "replays": 0}
+    orig = kernels.Graph.replay
+
+    def replay(self):
+        outer = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            orig(self)
+        finally:
+            torch.cuda.set_sync_debug_mode(outer)
+        seen["replays"] += 1
+
+    prev = torch.cuda.get_sync_debug_mode()
+    kernels.Graph.replay = replay
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield seen
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+            # the mode's own notice ("... does not yet detect all
+            # synchronizing operations") is not a synchronization
+            where = [f"{os.path.basename(w.filename)}:{w.lineno}"
+                     for w in caught if "called a synchronizing CUDA "
+                     "operation" in str(w.message)]
+            seen["syncs"], seen["where"] = len(where), where
+    finally:
+        kernels.Graph.replay = orig
+
+
+def same_runs(a, b) -> bool:
+    return [(r.iteration, r.residual, r.n_frozen, r.n_ray_miss)
+            for r in a] == [(r.iteration, r.residual, r.n_frozen,
+                             r.n_ray_miss) for r in b]
+
+
+def batched_against_one_by_one(sm, n: int, label: str, smi: str,
+                               want_launches: dict) -> dict:
+    """Phases 4 and 5: ``sm.steps(n)`` one iteration a dispatch, then
+    from the same start in batches of ITER_BATCH (CUDA-graph replays):
+    bit-equal points and normals, equal results, two host reads for
+    n = 32, the replays free of synchronizations, each kernel launched
+    ``want_launches[kernel]`` times in both runs -> the batched run's
+    results and launches, the times and the memory."""
+    from smoothmesh_torch import kernels
+
+    require(sm.iter_batch == ITER_BATCH, f"iter_batch {sm.iter_batch}: "
+            "SMOOTHMESH_ITER_BATCH is set")
+    start = (sm.points.clone(), sm.normals.clone(), sm._iteration)
+    sm.iter_batch = 1
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    one = sm.steps(n)
+    t_one = time.perf_counter() - t0
+    launches_one = {k: k.launches for k in kernels.ALL}
+    pts_one, nrm_one = sm.points, sm.normals
+    sm.points, sm.normals = start[0].clone(), start[1].clone()
+    sm._iteration = start[2]
+    sm.iter_batch = ITER_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_capture = sm.prepare_batch()
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    kernels.reset_launches()
+    with host_reads_and_replays() as seen:
+        t0 = time.perf_counter()
+        batched = sm.steps(n)
+        t_batched = time.perf_counter() - t0
+    launches = {k: k.launches for k in kernels.ALL}
+    peak = torch.cuda.max_memory_allocated()
+    require(len(one) == len(batched) == n, f"{label}: {len(one)} and "
+            f"{len(batched)} iterations ran")
+    require(same_runs(one, batched), f"{label}: the batched results "
+            "differ from the one-by-one ones")
+    require(torch.equal(pts_one, sm.points)
+            and torch.equal(nrm_one, sm.normals),
+            f"{label}: the batched points or normals are not bit-equal "
+            f"to the one-by-one ones ({bits_differing(sm.points, pts_one)}"
+            " values differ)")
+    want_reads = -(-n // ITER_BATCH)
+    require(seen["syncs"] == want_reads and seen["replays"] == n
+            and sm.face_angle_stops == 0,
+            f"{label}: {seen['syncs']} host reads (want {want_reads}; at "
+            f"{', '.join(seen['where'])}), "
+            f"{seen['replays']} replays, {sm.face_angle_stops} face-angle "
+            "stops")
+    for run, counts in (("one by one", launches_one), ("batched", launches)):
+        for k, c in counts.items():
+            require(c == want_launches[k], f"{label} ({run}): {k.name} "
+                    f"launched {c} times in {n} iterations")
+    ms_one = [r.wall_ms for r in one]
+    ms_b = [r.wall_ms for r in batched]
+    print(f"{label}, steps({n}): one iteration a dispatch {t_one:.3f} s, "
+          f"median {np.median(ms_one):.4f} ms/iteration (mean "
+          f"{np.mean(ms_one):.4f}); in batches of {ITER_BATCH} "
+          f"{t_batched:.3f} s, {np.median(ms_b):.4f} ms/iteration (batch "
+          f"walls over their iterations: "
+          f"{', '.join(f'{w:.4f}' for w in sorted(set(ms_b)))}); graph "
+          f"capture (with its warm-up iteration) {t_capture:.3f} s; "
+          f"{seen['syncs']} host reads, {seen['replays']} replays under "
+          f"sync debug 'error'; bit-equal; peak device memory over the "
+          f"capture and the batched run {peak / 1e9:.2f} GB, reserved "
+          f"after the capture {reserved / 1e9:.2f} GB; on {smi}",
+          flush=True)
+    return dict(steps=batched, launches=launches, launches_one=launches_one,
+                ms_one=float(np.median(ms_one)),
+                ms_batched=float(np.median(ms_b)), capture_s=t_capture,
+                peak_gb=peak / 1e9, t_run=t_batched)
+
+
+def small_batched_against_one_by_one(sk, n: int, label: str) -> tuple:
+    """Phase 6: ``sk.steps(n)`` in batches, then one iteration a
+    dispatch from the same start: bit-equal -> (the batched results,
+    its face-angle stops); sk keeps the batched state."""
+    start = (sk.points.clone(), sk.normals.clone(), sk._iteration)
+    stops = sk.face_angle_stops
+    batched = sk.steps(n)
+    stops = sk.face_angle_stops - stops
+    state = (sk.points, sk.normals, sk._iteration)
+    sk.points, sk.normals = start[0].clone(), start[1].clone()
+    sk._iteration, sk.iter_batch = start[2], 1
+    one = sk.steps(n)
+    require(same_runs(one, batched) and torch.equal(sk.points, state[0])
+            and torch.equal(sk.normals, state[1]),
+            f"{label}: batched and one by one differ")
+    sk.points, sk.normals, sk._iteration = state
+    sk.iter_batch = ITER_BATCH
+    print(f"{label}: steps({n}) in batches of {ITER_BATCH} bit-equal to one "
+          f"iteration a dispatch, {stops} face-angle stop(s)", flush=True)
+    return batched, stops
+
+
+def native_tables_check(sm, smi: str) -> None:
+    """Phase 2: the Smoother's (native) topology left-packed, and the
+    numpy path's compile of the same mesh timed and held to it: equal
+    edge counts and shapes, equal row counts in every table whose rows
+    are points, faces or cells (the native path only orders edges and
+    row entries by first appearance)."""
+    from smoothmesh_torch.mesh.topology import (compile_topology,
+                                                rows_not_left_packed)
+
+    topo = sm.topo
+    bad = rows_not_left_packed(topo)
+    require(not bad, f"native tables not left-packed: {bad}")
+    t0 = time.perf_counter()
+    ref = compile_topology(sm.mesh_internal, use_native=False)
+    t_numpy = time.perf_counter() - t0
+    require(ref.n_edges == topo.n_edges, f"{topo.n_edges} edges (native) "
+            f"vs {ref.n_edges} (numpy)")
+    for f in dataclasses.fields(topo):
+        a, b = getattr(topo, f.name), getattr(ref, f.name)
+        if isinstance(a, np.ndarray):
+            require(a.shape == b.shape, f"{f.name}: {a.shape} (native) vs "
+                    f"{b.shape} (numpy)")
+    for name in ("face_mask", "point_points_mask", "point_cells_mask",
+                 "point_faces_mask", "point_edges_mask", "cell_faces_mask"):
+        require(np.array_equal(getattr(topo, name).sum(axis=1),
+                               getattr(ref, name).sum(axis=1)),
+                f"{name}: row counts differ between the two paths")
+    require(np.array_equal(np.sort(topo.point_points, axis=1),
+                           np.sort(ref.point_points, axis=1)),
+            "point_points differ between the two paths")
+    print(f"topology at {MAIN_SIDE}^3: the numpy path {t_numpy:.2f} s "
+          f"(host clock; the native one in the set-up split above); native "
+          f"rows left-packed, {topo.n_edges} edges and the row counts equal "
+          f"on both paths; host of {smi}", flush=True)
 
 
 def cli_phase(mesh, smi: str) -> dict:
@@ -1046,7 +1242,7 @@ def main() -> int:
         os.path.abspath(smoothmesh_torch.__file__))) == here,
         "smoothmesh_torch is not the package beside this script")
     from smoothmesh_torch import geometry as geo
-    from smoothmesh_torch import kernels
+    from smoothmesh_torch import kernels, native
     from smoothmesh_torch.driver import PLAIN_STAGES, Smoother, iteration_body
     from smoothmesh_torch.ops import constraints as con
     from smoothmesh_torch.ops import smoothing as smo
@@ -1065,6 +1261,11 @@ def main() -> int:
     t_build = kernels.build_all()
     print(f"build: {t_build:.2f} s for {len(kernels.ALL)} kernels, {n_new} "
           f"of them compiled now (the others were built before)")
+    t0 = time.perf_counter()
+    native.MESHCOMPILER.load()
+    print(f"native topology compiler: {time.perf_counter() - t0:.2f} s, "
+          f"{native.MESHCOMPILER.builds} compile(s) now "
+          f"({native.MESHCOMPILER.library_path().name})", flush=True)
     for k in kernels.ALL:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1087,6 +1288,7 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2f} s" for k, v in t_parts.items())
           + f", the rest {t_setup - sum(t_parts.values()):.2f} s",
           flush=True)
+    native_tables_check(sm, smi)
     fa_bytes = nbytes(*(td[k] for k in FACE_ANGLE_KEYS))
     print(f"device topology: {nbytes(*td.values()) / 1e9:.3f} GB, of "
           f"which the face angle's tables {fa_bytes / 1e9:.3f} GB "
@@ -1369,18 +1571,11 @@ def main() -> int:
     del td_p, pfm, wpv, wnx, own, cf, cfm
 
     # -- 4. the default path through the user's entry point ------------------
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    steps = sm.steps(MAIN_ITERS)
-    t_run = time.perf_counter() - t0
-    launches = {k: k.launches for k in kernels.ALL}
-    require(len(steps) == MAIN_ITERS, f"{len(steps)} iterations ran")
-    for k, n in launches.items():
-        want_n = (0 if k in (kernels.RAYCAST, kernels.TABLE_GATHER)
-                  else MAIN_ITERS)
-        require(n == want_n, f"{k.name} launched {n} times in "
-                f"{MAIN_ITERS} iterations of the default path")
+    main = batched_against_one_by_one(
+        sm, MAIN_ITERS, f"default path at {MAIN_SIDE}^3", smi,
+        {k: (0 if k in (kernels.RAYCAST, kernels.TABLE_GATHER)
+             else MAIN_ITERS) for k in kernels.ALL})
+    steps, launches, t_run = main["steps"], main["launches"], main["t_run"]
     for r in steps:
         require(math.isfinite(r.residual), f"residual {r.residual}")
         require(0 <= r.n_frozen <= N, f"nFrozenPoints {r.n_frozen}")
@@ -1393,13 +1588,13 @@ def main() -> int:
     require(vmin > 0, f"cell volume {vmin} at the end")
     walls = [r.wall_ms for r in steps]
     iter_ms = float(np.mean(walls))
-    print(f"default path (face angle on): {MAIN_ITERS} iterations "
+    print(f"default path (face angle on), batched: {MAIN_ITERS} iterations "
           f"in {t_run:.2f} s; {iter_ms:.3f} ms/iteration (median "
           f"{np.median(walls):.3f}, max {max(walls):.3f} at iteration "
           f"{int(np.argmax(walls)) + 1} of {len(walls)}), "
           f"{N / (iter_ms / 1e3):,.0f} point-updates/s on {smi}; "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
-          f" GB; min cell volume {vmin:.4g} (normalized units)", flush=True)
+          f"peak device memory {main['peak_gb']:.2f} GB; min cell volume "
+          f"{vmin:.4g} (normalized units)", flush=True)
     del fg, vol
     quality = quality_phase(sm, smi)
     mesh_int = sm.mesh_internal
@@ -1417,17 +1612,18 @@ def main() -> int:
                ("default band", {})]
     configs += [(f"band {lo, hi}", dict(min_angle=lo, max_angle=hi))
                 for lo, hi in (TIGHT_BAND, TIGHTER_BAND)]
-    small_exact = {}
+    small_exact, fa_stops = {}, {}
     for label, kw in configs:
         sk = Smoother(small, SmoothingParams(
             centroidal_iters=SMALL_ITERS, rel_tol=0.0, **kw), device="cuda")
         n_bnd = int((~sk.td["is_internal_point"]).sum())
         pts_p = sk.points.clone()
-        rk = sk.steps(SMALL_ITERS)
+        rk, fa_stops[label] = small_batched_against_one_by_one(
+            sk, SMALL_ITERS, f"{SMALL_SIDE}^3 {label}")
         td_p = with_plain_tables(sk.td, sk.topo)
         exact = small_exact[label] = {}
         for i, r in enumerate(rk):
-            pts_p, _, res_p, nf_p, _ = iteration_body(
+            pts_p, _, res_p, nf_p, _, _ = iteration_body(
                 pts_p, td_p, sk.params, sk._scale, exact_stages(exact))
             res_p, nf_p = float(res_p), int(nf_p)
             where = f"{SMALL_SIDE}^3 {label}, iteration {i + 1}"
@@ -1455,6 +1651,9 @@ def main() -> int:
               f"{exact['k5_max_abs_err']:.3g}", flush=True)
     require(rk[-1].n_frozen > n_bnd,
             f"{SMALL_SIDE}^3, band {TIGHTER_BAND}: no internal point froze")
+    for band in (TIGHT_BAND, TIGHTER_BAND):
+        require(fa_stops[f"band {band}"] == 1, f"{SMALL_SIDE}^3 band "
+                f"{band}: {fa_stops[f'band {band}']} face-angle stops")
 
     from smoothmesh_torch.testcases import bench_dome_geometry
 
@@ -1463,11 +1662,12 @@ def main() -> int:
         device="cuda")
     sk.enable_boundary_smoothing(*bench_dome_geometry()[1:])
     pts_p, nrm_p = sk.points.clone(), sk.normals.clone()
-    rk = sk.steps(SMALL_ITERS)
+    rk, _ = small_batched_against_one_by_one(
+        sk, SMALL_ITERS, f"{SMALL_SIDE}^3 boundary path")
     td_p = with_plain_tables(sk.td, sk.topo)
     exact = small_exact["boundary path"] = {}
     for i, r in enumerate(rk):
-        pts_p, nrm_p, res_p, nf_p, nm_p = iteration_body(
+        pts_p, nrm_p, res_p, nf_p, nm_p, _ = iteration_body(
             pts_p, td_p, sk.params, sk._scale, exact_stages(exact),
             normals=nrm_p, smoothing_surface=sk.smoothing_surface,
             layer=sk.layer, bnd=sk.bnd)

@@ -4,11 +4,15 @@ checkouts can be compared in alternation on one card (H100).
 The default cell is chip_smoke.py's main path: the 128^3 graded,
 perturbed bench mesh (its "top"/"rest" patches), spatially reordered,
 the default parameters (face angle on, boundary points fixed),
-``Smoother.steps``.  After 4 warm-up iterations it runs ``--reps``
+``Smoother.steps``.  After 4 warm-up iterations (in a checkout with the
+batched ``steps``, they also capture its CUDA graph) it runs ``--reps``
 times ``steps(--iters)`` and prints, for each, the median and mean of
-the iterations' wall times (one host read each, as ``StepResult``
-records them) and the peak device memory, with the device topology's
-size, then one JSON line with the card's name and power limit.
+the iterations' wall times (as ``StepResult`` records them: one host
+read each, or a batch's wall time over its iterations) and the peak
+device memory, with the device topology's size and the checkout's
+``iter_batch`` (``SMOOTHMESH_ITER_BATCH``; 1 where the checkout has no
+batched ``steps``), then one JSON line with the card's name and power
+limit.
 
 With ``--boundary`` it times the boundary cell instead: the same mesh
 in bench.py's boundary configuration (layers and boundary smoothing on
@@ -24,6 +28,8 @@ Run from the repository root on a machine with a CUDA card, for example
 parent (P) and change (C) in the order P C C P:
     python experiments/torch_default_cell.py --root PARENT --topo T.pkl
     python experiments/torch_default_cell.py --topo T.pkl
+and the change one iteration a dispatch:
+    SMOOTHMESH_ITER_BATCH=1 python experiments/torch_default_cell.py ...
 """
 
 import argparse
@@ -95,6 +101,7 @@ def main() -> int:
     if args.boundary:
         sm.enable_boundary_smoothing(*bench_dome_geometry()[1:])
     cell = "boundary" if args.boundary else "default"
+    batch = getattr(sm, "iter_batch", 1)
     topo_gb = sum(t.numel() * t.element_size() for t in sm.td.values()) / 1e9
     sm.steps(4)
     torch.cuda.synchronize()
@@ -107,12 +114,14 @@ def main() -> int:
                      "mean_ms": float(np.mean(walls)),
                      "seconds": time.perf_counter() - t0,
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
-        print(f"{root}, {cell} cell: {args.iters} iterations, median "
+        print(f"{root}, {cell} cell, iter_batch {batch}: {args.iters} "
+              f"iterations, median "
               f"{reps[-1]['median_ms']:.4f} ms, mean "
               f"{reps[-1]['mean_ms']:.4f} ms, peak device memory "
               f"{reps[-1]['peak_gb']:.3f} GB, device topology "
               f"{topo_gb:.3f} GB on {smi}", flush=True)
     print(json.dumps({"root": root, "cell": cell, "card": smi,
+                      "iter_batch": batch,
                       "iters": args.iters, "topology_gb": topo_gb,
                       "reps": reps}))
     return 0

@@ -4,9 +4,12 @@ Builds the CUDA kernels, sets up the 128^3 bench mesh of chip_smoke.py
 with the default parameters (face angle on; ``--band`` sets its band)
 or, with ``--boundary``, in bench.py's boundary configuration (layers +
 boundary smoothing onto the k = 64 dome, chip_smoke.boundary_params),
-runs 4 warm-up iterations, then traces ``--iters`` iterations of
-``Smoother.steps`` with ``torch.profiler``, writes the chrome trace to
-chiprun_out/torch_profile_step_<band>.json and summarizes it: device
+runs 4 warm-up iterations (which also capture the batched ``steps``'
+CUDA graph), then traces ``--iters`` iterations of ``Smoother.steps``
+(``SMOOTHMESH_ITER_BATCH`` a dispatch: 16 unless set; 1 runs one
+iteration a dispatch) with ``torch.profiler``, writes the chrome trace
+to chiprun_out/torch_profile_step_<band>_b<iter_batch>.json and
+summarizes it: device
 busy time (the union of kernel, memcpy and memset intervals) against
 the span from the first to the last device event, and device time per
 iteration by kernel, with the card's name and power limit.
@@ -100,6 +103,7 @@ def main() -> int:
                                  max_angle=args.band[1])
         label = f"{args.band[0]:g}_{args.band[1]:g}"
     sm = Smoother(chip_smoke.bench_mesh(args.side), params, device="cuda")
+    label += f"_b{sm.iter_batch}"
     if args.boundary:
         sm.enable_boundary_smoothing(*bench_dome_geometry()[1:])
     sm.steps(4)

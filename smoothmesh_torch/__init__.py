@@ -13,6 +13,8 @@ Layout (each module mirrors its ``smoothmesh_tpu`` counterpart):
   - ``mesh``      block, multi-block and extruded-prism generators,
                   baffles, the topology compiler (padded int32 index
                   tables + masks) and the RCB spatial reordering
+  - ``native``    the topology compiler's C++ builds
+                  (``csrc/host/meshcompiler.cpp``, built at first use)
   - ``params``    smoothing options and their derived defaults
   - ``quality``   the checkMesh-style report and the mesh stats behind
                   the derived defaults
@@ -24,8 +26,10 @@ Layout (each module mirrors its ``smoothmesh_tpu`` counterpart):
   - ``layers``    boundary-layer maps (host) and blending (device)
   - ``boundary``  boundary classification (host) and boundary point
                   projection (device)
-  - ``kernels``   building, loading and launching the CUDA kernels
-  - ``driver``    the iteration loop, convergence and writes
+  - ``kernels``   building, loading and launching the CUDA kernels,
+                  and capturing them into CUDA graphs
+  - ``driver``    the iteration loop (batched: CUDA-graph replays with
+                  one host read a batch), convergence and writes
   - ``convert``   building the driver's state from the JAX package's
   - ``testcases`` the reference's eight testcases as generators
   - ``cli``       the command-line interface

@@ -19,10 +19,21 @@ area vectors, and the boundary pass's freeze mask goes into K4.
 
 Coordinates are internally normalized (centred, scaled so the minimum
 edge length is 1) so float32 stays accurate at any absolute mesh scale;
-length-valued parameters are scaled along.  Each iteration reads back
-two scalars (the residual and the frozen count), and with boundary
-smoothing a third (the ray-miss count): the information the reference
-prints.
+length-valued parameters are scaled along.
+
+:meth:`Smoother.steps` runs ``iter_batch`` iterations a dispatch (the
+JAX package's ``SMOOTHMESH_ITER_BATCH``, default 16) with one host read
+a batch: each iteration writes its residual, frozen count and ray-miss
+count (the information the reference prints) into a record on the
+device, and an iteration after the stop passes the state through bit
+for bit.  On the card the batch iteration is captured once as a CUDA
+graph and replayed.  The face-angle fixed point, the one step whose
+work depends on a host decision, is not run inside a batch: an
+iteration that finds a point in the face-angle band is not committed,
+the batch stops there, and the host runs that iteration with the fixed
+point (:class:`_Batch`).  ``iter_batch`` <= 1 runs one iteration a
+dispatch, reading two scalars (three with boundary smoothing) after
+each.
 
 The face-angle step is the JAX driver's tile-engine branch
 (``smoothmesh_tpu/driver.py:321-327``) on every device: the fixed point
@@ -37,6 +48,7 @@ noise (see tests/test_torch_driver.py).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -45,6 +57,7 @@ import torch
 
 from smoothmesh_torch import boundary as bps
 from smoothmesh_torch import geometry as geo
+from smoothmesh_torch import kernels
 from smoothmesh_torch import layers as lay
 from smoothmesh_torch.device import resolve_device, to_device
 from smoothmesh_torch.io.polymesh import PolyMesh
@@ -132,13 +145,27 @@ def td_keys(device: torch.device, normals: bool = False) -> frozenset:
     return (keys | NORMALS_TD_KEYS) if normals else keys
 
 
+class Iteration(NamedTuple):
+    """What one iteration returns (scalars as 0-d tensors)."""
+
+    points: torch.Tensor
+    normals: Optional[torch.Tensor]
+    residual: torch.Tensor
+    n_frozen: torch.Tensor
+    n_ray_miss: object          # the constant 0 without boundary smoothing
+    #: the points in the face-angle band, counted (not frozen) when the
+    #: fixed point was left out; None where it ran or is off
+    n_active: Optional[torch.Tensor] = None
+
+
 def iteration_body(points, td, params: SmoothingParams, scale: float,
                    stages: Stages = KERNEL_STAGES, normals=None,
-                   smoothing_surface=None, layer=None, bnd=None):
+                   smoothing_surface=None, layer=None, bnd=None,
+                   fixed_point: bool = True, skip=None) -> Iteration:
     """One smoothing iteration (reference src/smoothMesh.C:2257-2437)
-    -> (new points, normals, residual, frozen count, ray-miss count),
-    the last three as scalar tensors (the ray-miss count is the constant
-    0 without ``bnd``).
+    -> (new points, normals, residual, frozen count, ray-miss count,
+    face-angle active count) (:class:`Iteration`), the scalars as 0-d
+    tensors (the ray-miss count is the constant 0 without ``bnd``).
 
     ``normals``: the boundary point normals' state (read and returned
     updated when ``layer`` or ``bnd`` is given).  ``smoothing_surface``:
@@ -146,7 +173,13 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
     may.  ``layer``: the layer maps (``hops_layer``, ``outer_map``) or
     None.  ``bnd``: the boundary-smoothing tables or None.  Length-valued
     parameters are pre-scaled by the driver's coordinate normalization
-    factor ``scale``.
+    factor ``scale``.  ``fixed_point=False`` leaves the face-angle fixed
+    point out and counts the points in its band instead (``n_active``):
+    where that count is 0 the fixed point would return its incoming
+    mask, so the iteration is exact; where it is not, every point
+    reverts.  ``skip``: a 0-d bool tensor; where it holds, every point
+    reverts (the points pass through bit for bit).  With
+    ``fixed_point=False`` no step of it reads the host.
     """
     p = params
     min_edge = p.min_edge_length * scale
@@ -191,21 +224,112 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
     frozen = stages.freeze_constraints(
         points, prop, td, min_edge, p.total_min_freeze, p.min_angle_rad,
         p.edge_angle_constraint, frozen)
+    n_active = None
     if p.face_angle_constraint:
         # as the JAX driver's tile branch (smoothmesh_tpu/driver.py:321-327)
         cur = stages.face_angles_per_point(points, fg.means, cell_ctrs, td)
-        frozen = constraints.restrict_face_angle_deterioration(
-            points, cell_ctrs, prop, td, p.min_angle_rad, p.max_angle_rad,
-            frozen, fc_base=fg.means, cur_minmax=cur, u_space=True)
+        if fixed_point:
+            frozen = constraints.restrict_face_angle_deterioration(
+                points, cell_ctrs, prop, td, p.min_angle_rad,
+                p.max_angle_rad, frozen, fc_base=fg.means, cur_minmax=cur,
+                u_space=True)
+        else:
+            n_active = constraints.face_angle_band(
+                *cur, p.min_angle_rad, p.max_angle_rad, u_space=True,
+                guarded=True).active.sum()
 
     fixed = ~internal
     if smoothing_surface is not None:
         fixed = fixed & ~smoothing_surface
     revert = frozen | fixed
+    # the batch's pass-through, folded into the revert mask (no select
+    # over the points of its own)
+    if n_active is not None:
+        skip = (n_active > 0) if skip is None else skip | (n_active > 0)
+    if skip is not None:
+        revert = revert | skip
     new_points = torch.where(revert[:, None], points, prop)
     n_frozen = (revert & td["point_valid"]).sum()
     res = smoothing.calculate_residual(points, new_points, max_step)
-    return new_points, normals, res, n_frozen, n_ray_miss
+    return Iteration(new_points, normals, res, n_frozen, n_ray_miss,
+                     n_active)
+
+
+class _Batch:
+    """Up to ``iter_batch`` iterations a dispatch with one host read.
+
+    The batch state (points, normals, a ``done`` flag) and a record of
+    one row an iteration (:data:`RECORD`) live on the device, with a slot
+    counter.  Each iteration runs without the face-angle fixed point
+    (``iteration_body(..., fixed_point=False)``) and is committed only
+    where no point is in the face-angle band and the batch is not done;
+    one that finds such points sets ``done`` uncommitted (a face-angle
+    stop), and so does a committed one whose residual falls below
+    ``rel_tol`` or, under ``ray_miss_fatal`` with boundary smoothing,
+    whose ray cast missed.  An iteration not committed reverts every
+    point, so after ``done`` the state passes through bit for bit.  On
+    the card one iteration is captured as a CUDA graph
+    (:class:`kernels.Graph`) on the buffers held here and replayed; on
+    the CPU it runs eagerly.
+    """
+
+    #: the record's columns (float64; counts are exact)
+    RECORD = ("residual", "n_frozen", "n_ray_miss", "committed",
+              "face_angle_stop")
+
+    def __init__(self, sm: "Smoother", key: tuple):
+        self.key = key
+        dev = sm.device
+        self.points = sm.points.clone()
+        self.normals = sm.normals.clone()
+        self.done = torch.zeros((), dtype=torch.bool, device=dev)
+        self.slot = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.record = torch.zeros((sm.iter_batch, len(self.RECORD)),
+                                  dtype=torch.float64, device=dev)
+        self._args = (sm.td, sm.params, sm._scale)
+        self._kw = dict(smoothing_surface=sm.smoothing_surface,
+                        layer=sm.layer, bnd=sm.bnd)
+        self._fatal = bool(sm.params.ray_miss_fatal) and sm.bnd is not None
+        self.graph = (kernels.Graph(self._iteration) if dev.type == "cuda"
+                      else None)
+
+    def _iteration(self) -> None:
+        done = self.done
+        it = iteration_body(self.points, *self._args, normals=self.normals,
+                            fixed_point=False, skip=done, **self._kw)
+        fa_stop = (it.n_active > 0) if it.n_active is not None \
+            else torch.zeros_like(done)
+        commit = ~done & ~fa_stop
+        stop = it.residual < self._args[1].rel_tol
+        miss = it.n_ray_miss
+        if not torch.is_tensor(miss):
+            miss = it.residual.new_zeros(())
+        elif self._fatal:
+            stop = stop | (miss > 0)
+        row = torch.stack([it.residual.double(), it.n_frozen.double(),
+                           miss.double(), commit.double(),
+                           (~done & fa_stop).double()])
+        self.record.index_copy_(0, self.slot, row[None])
+        self.slot.add_(1)
+        self.points.copy_(it.points)
+        if it.normals is not self.normals:
+            self.normals.copy_(torch.where(commit, it.normals,
+                                           self.normals))
+        self.done.copy_(done | fa_stop | stop)
+
+    def run(self, points, normals, n: int) -> list:
+        """``n`` iterations from ``points``/``normals`` -> the record's
+        first ``n`` rows, read to the host (the batch's one read)."""
+        self.points.copy_(points)
+        self.normals.copy_(normals)
+        self.done.zero_()
+        self.slot.zero_()
+        for _ in range(n):
+            if self.graph is not None:
+                self.graph.replay()
+            else:
+                self._iteration()
+        return self.record[:n].tolist()            # host sync
 
 
 class Smoother:
@@ -221,8 +345,17 @@ class Smoother:
     dtype: coordinate dtype (default float32; the kernels take
         float32, the plain CPU versions any float dtype).
     topo: a precompiled topology of ``mesh``; without one the mesh is
-        spatially reordered (``permute_mesh``) and compiled here.
+        spatially reordered (``permute_mesh``) and compiled here by the
+        native topology compiler (``compile_topology``, C++ built at
+        first use; it raises where it cannot be built).
     device: ``"cuda"`` by default; ``"cpu"`` runs the plain versions.
+
+    ``iter_batch`` (from ``SMOOTHMESH_ITER_BATCH``, default 16, as the
+    JAX package): the iterations :meth:`steps` runs a dispatch, with one
+    host read a batch; on the card a batch replays one iteration
+    captured as a CUDA graph, captured again when the tables,
+    parameters or state it captured are replaced.  <= 1 runs one
+    iteration a dispatch.  :meth:`step` always runs one.
     """
 
     def __init__(self, mesh: PolyMesh, params: SmoothingParams,
@@ -280,6 +413,10 @@ class Smoother:
         self.layer = None
         self.bnd = None
         self._iteration = 0
+        self.iter_batch = int(os.environ.get("SMOOTHMESH_ITER_BATCH", "16"))
+        self._batch = None
+        #: batches that stopped at a face-angle stop
+        self.face_angle_stops = 0
 
     def _tensor(self, a, dtype) -> torch.Tensor:
         return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -434,7 +571,7 @@ class Smoother:
         """One iteration, counted -> (its StepResult, the new points and
         normals, uncommitted), with one host read."""
         t0 = time.perf_counter()
-        new_points, normals, res, n_frozen, n_miss = iteration_body(
+        new_points, normals, res, n_frozen, n_miss, _ = iteration_body(
             self.points, self.td, self.params, self._scale,
             normals=self.normals, smoothing_surface=self.smoothing_surface,
             layer=self.layer, bnd=self.bnd)
@@ -463,11 +600,48 @@ class Smoother:
         return r
 
     def steps(self, n: int) -> "list[StepResult]":
-        """Run up to ``n`` iterations, stopping after the first one whose
-        residual is below ``rel_tol``.  When a ray cast misses under
-        ``ray_miss_fatal`` the offending iteration is committed (points,
-        normals and the count) and then ``RuntimeError`` is raised, as
-        the JAX ``steps`` (and so ``run`` and the CLI) does."""
+        """Run up to ``n`` iterations, ``iter_batch`` a dispatch,
+        stopping after the first one whose residual is below
+        ``rel_tol``; one StepResult per iteration that ran, each with
+        its batch's wall time over the iterations that ran in it.  When
+        a ray cast misses under ``ray_miss_fatal`` the offending
+        iteration is committed (points, normals and the count) and then
+        ``RuntimeError`` is raised, as the JAX ``steps`` (and so ``run``
+        and the CLI) does.
+
+        A batch stops at an iteration that finds points in the
+        face-angle band (:class:`_Batch`); the host runs that iteration
+        with the fixed point, and the rest of this call one iteration a
+        dispatch."""
+        if self.iter_batch <= 1:
+            return self._steps_one_by_one(n)
+        out = []
+        while n > 0:
+            t0 = time.perf_counter()
+            batch = self._ensure_batch()
+            m = min(n, self.iter_batch)
+            rows = batch.run(self.points, self.normals, m)
+            wall = (time.perf_counter() - t0) * 1e3
+            ran = [r for r in rows if r[3]]
+            if ran:
+                self.points = batch.points.clone()
+                self.normals = batch.normals.clone()
+            for res, n_frozen, n_miss, _, _ in ran:
+                self._iteration += 1
+                out.append(StepResult(self._iteration, res, int(n_frozen),
+                                      wall / len(ran), int(n_miss)))
+            if ran:
+                self._check_miss(out[-1])
+                if out[-1].residual < self.params.rel_tol:
+                    break
+            n -= len(ran)
+            if len(ran) < m:        # a face-angle stop
+                self.face_angle_stops += 1
+                out += self._steps_one_by_one(n)
+                break
+        return out
+
+    def _steps_one_by_one(self, n: int) -> "list[StepResult]":
         out = []
         for _ in range(n):
             r, self.points, self.normals = self._iterate()
@@ -476,6 +650,25 @@ class Smoother:
             if r.residual < self.params.rel_tol:
                 break
         return out
+
+    def _ensure_batch(self) -> _Batch:
+        """The batch of the current tables, parameters and state
+        tensors; built (and on the card captured) anew when one of them
+        was replaced.  The batch holds them, so their ids stay theirs."""
+        key = (id(self.td), id(self.bnd), id(self.layer),
+               id(self.smoothing_surface), repr(self.params), self._scale,
+               self.dtype, self.device, self.iter_batch)
+        if self._batch is None or self._batch.key != key:
+            self._batch = None          # free the old graph's pool first
+            self._batch = _Batch(self, key)
+        return self._batch
+
+    def prepare_batch(self) -> float:
+        """Build (on the card: warm up and capture) the batch that
+        :meth:`steps` will run, ahead of it -> the seconds it took."""
+        t0 = time.perf_counter()
+        self._ensure_batch()
+        return time.perf_counter() - t0
 
     def run(self, log: Optional[Callable[[str], None]] = print,
             on_write: Optional[Callable[[int, np.ndarray], None]] = None,
@@ -503,8 +696,9 @@ class Smoother:
         else:
             result = self._run_loop(log, on_write, iter_ms)
         if log:
-            # the first iteration carries the kernels' first-use build
-            steady = iter_ms[1:] or iter_ms
+            # the first batch (or iteration) carries the kernels'
+            # first-use build and the graph capture
+            steady = iter_ms[max(self.iter_batch, 1):] or iter_ms
             if steady:
                 mean_ms = sum(steady) / len(steady)
                 rate = self.topo.n_points / (mean_ms / 1e3)

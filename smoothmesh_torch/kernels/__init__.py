@@ -10,7 +10,10 @@ machines with no ``nvcc`` and no card.
 Each C entry point launches on the stream it is given (PyTorch's
 current stream), allocates nothing, and returns ``cudaGetLastError()``;
 :meth:`Kernel.launch` raises if that is not 0 and otherwise adds one to
-the kernel's launch count.
+the kernel's launch count.  A launch made while the stream is being
+captured into a CUDA graph (:class:`Graph`) runs nothing then: it is
+counted as captured, and each replay of the graph adds the launches it
+captured to the counts.
 
 Arithmetic: ``--fmad=false`` keeps ``a*b+c`` as two rounded operations,
 as the plain PyTorch versions compute it, so the kernels agree with
@@ -93,6 +96,7 @@ class Kernel:
         self.argtypes = list(argtypes) + [P]   # + the stream
         self.replaces = replaces      # the TPU kernel it ports
         self.launches = 0
+        self.captured = 0             # launches recorded by a capture
         self.build_log = ""
         self._fn = None
 
@@ -164,7 +168,10 @@ class Kernel:
         if err != 0:
             raise RuntimeError(
                 f"{self.name}: CUDA error {err} at launch")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
 
 
 def build_all() -> float:
@@ -183,6 +190,36 @@ def build_all() -> float:
     for k in ALL:
         k.load()
     return time.perf_counter() - t0
+
+
+class Graph:
+    """``fn`` (which takes no arguments and works on tensors it holds)
+    captured once as a CUDA graph, after one eager warm-up call on a
+    side stream (so every kernel was built and loaded, and every lazy
+    first use done, before the capture).  :meth:`replay` launches the
+    captured work and adds the kernel launches the capture recorded to
+    their counts.  The graph reads and writes the tensors ``fn`` used,
+    at their addresses: the caller keeps them alive and fills them in
+    place."""
+
+    def __init__(self, fn):
+        build_all()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        for k in ALL:
+            k.captured = 0
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            fn()
+        self.per_replay = {k: k.captured for k in ALL if k.captured}
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, n in self.per_replay.items():
+            k.launches += n
 
 
 def reset_launches() -> None:

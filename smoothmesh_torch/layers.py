@@ -226,9 +226,11 @@ def blend_with_orthogonal_points(points, new_points, td, hops, normals,
           & (outer_coords.abs() < 1e17).all(-1))
 
     max_hops = (hops - 1).clamp(max=max_layers_plus1)
+    # the base filled on the device: no host copy (it is captured in
+    # the batched steps' CUDA graph)
     length = layer_edge_length * torch.pow(
-        torch.tensor(layer_expansion_ratio, dtype=dtype,
-                     device=points.device), max_hops.to(dtype))
+        torch.full((), layer_expansion_ratio, dtype=dtype,
+                   device=points.device), max_hops.to(dtype))
 
     slope = -layer_max_blending_fraction / (max_layers_plus1 - min_layers)
     y0 = -slope * max_layers_plus1

@@ -14,7 +14,11 @@ Design notes (deliberate deviations from the reference, same semantics):
     cell" test, intersects the two points' ``point_cells`` rows instead.
   - ``findCellFacePair`` (reference src/smoothMesh.C:1042-1097) is
     precompiled into per-edge (cell -> face pair) slot tables.
-  - Edges are ordered lexicographically by (min point, max point).
+  - The native path (the default, ``smoothmesh_torch.native``) numbers
+    edges and orders the entries of each row by first appearance; the
+    numpy path (``use_native=False``) orders edges lexicographically by
+    (min point, max point) and sorts each row.  Both leave every row
+    left-packed (:func:`rows_not_left_packed`).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from smoothmesh_torch import native as native_lib
 from smoothmesh_torch.io.polymesh import PolyMesh
 
 
@@ -170,9 +175,19 @@ class MeshTopology:
         return np.array(sorted(set(out)), dtype=np.int64)
 
 
-def compile_topology(mesh: PolyMesh) -> MeshTopology:
-    """Build all padded adjacency arrays from a PolyMesh (numpy, with
-    O(M log M) sorts; M = perimeter entries)."""
+def compile_topology(mesh: PolyMesh,
+                     use_native: bool = True) -> MeshTopology:
+    """Build all padded adjacency arrays from a PolyMesh.
+
+    ``use_native`` runs the heavy builds in the C++ O(M) hashing and
+    grouping of :mod:`smoothmesh_torch.native` (M = perimeter entries),
+    which raises if its library cannot be built or loaded;
+    ``use_native=False`` is the numpy path, with O(M log M) sorts.  The
+    two paths order edges and the entries within rows differently
+    (first appearance against sorted), which only changes floating-point
+    summation orders and degenerate tie-breaks.
+    """
+    native = native_lib if use_native else None
     N = mesh.n_points
     F = mesh.n_faces
     Fi = mesh.n_internal_faces
@@ -212,51 +227,51 @@ def compile_topology(mesh: PolyMesh) -> MeshTopology:
     has_neighbour = neighbour_full >= 0
 
     # Edges: undirected unique pairs from face perimeters
-    pair_a = flat.astype(np.int64)
-    pair_b = flat[offs32[face_of_entry] + nxt_slot].astype(np.int64)
-    lo = np.minimum(pair_a, pair_b)
-    hi = np.maximum(pair_a, pair_b)
-    pair_key = lo * N + hi
-    uniq_keys, edge_of_pair = np.unique(pair_key, return_inverse=True)
-    E = len(uniq_keys)
-    edges = np.stack([uniq_keys // N, uniq_keys % N],
-                     axis=1).astype(np.int32)
-    edge_of_pair = edge_of_pair.astype(np.int32)
-    del pair_a, pair_b, lo, hi, pair_key, uniq_keys, nxt_slot
+    if native is not None:
+        edges, edge_of_pair = native.build_edges(flat, offs, N)
+        E = len(edges)
+    else:
+        pair_a = flat.astype(np.int64)
+        pair_b = flat[offs32[face_of_entry] + nxt_slot].astype(np.int64)
+        lo = np.minimum(pair_a, pair_b)
+        hi = np.maximum(pair_a, pair_b)
+        pair_key = lo * N + hi
+        uniq_keys, edge_of_pair = np.unique(pair_key, return_inverse=True)
+        E = len(uniq_keys)
+        edges = np.stack([uniq_keys // N, uniq_keys % N],
+                         axis=1).astype(np.int32)
+        edge_of_pair = edge_of_pair.astype(np.int32)
+        del pair_a, pair_b, lo, hi, pair_key, uniq_keys
+    del nxt_slot
 
     # edge_faces: an edge appears once per face perimeter, so (edge,
     # face) pairs are already unique per face
-    ef_mask, edge_faces = pad_groups(edge_of_pair, E, face_of_entry,
-                                     dedupe_key=face_of_entry)
+    if native is not None:
+        ef_mask, edge_faces = native.pad_groups_native(edge_of_pair, E,
+                                                       face_of_entry)
+    else:
+        ef_mask, edge_faces = pad_groups(edge_of_pair, E, face_of_entry,
+                                         dedupe_key=face_of_entry)
 
     # edge_cells: union of owner/neighbour cells over edge faces
     foe_has_n = has_neighbour[face_of_entry]
     ec_e = np.concatenate([edge_of_pair, edge_of_pair[foe_has_n]])
     ec_c = np.concatenate([owner[face_of_entry],
                            neighbour_full[face_of_entry][foe_has_n]])
-    ec_mask, edge_cells = pad_groups(ec_e, E, ec_c, dedupe_key=ec_c)
+    if native is not None:
+        ec_mask, edge_cells = native.pad_groups_native(ec_e, E, ec_c,
+                                                       dedupe=True)
+    else:
+        ec_mask, edge_cells = pad_groups(ec_e, E, ec_c, dedupe_key=ec_c)
     del ec_e, ec_c
 
     # Per-edge per-cell face pair slots (replaces findCellFacePair)
-    f_owner = owner[edge_faces]                  # (E, maxEF)
-    f_neigh = neighbour_full[edge_faces]
-    # membership[e, c, f]: face f of edge e belongs to cell slot c
-    member = (
-        (edge_cells[:, :, None] == f_owner[:, None, :])
-        | (edge_cells[:, :, None] == f_neigh[:, None, :])
-    )
-    member &= ec_mask[:, :, None] & ef_mask[:, None, :]
-    n_member = member.sum(axis=2)
-    if np.any(n_member[ec_mask] != 2):
-        bad = np.argwhere((n_member != 2) & ec_mask)
-        raise ValueError(
-            "mesh sanity: edge/cell with != 2 adjacent edge-faces: "
-            f"{bad[:5]}"
-        )
-    edge_cell_f0 = member.argmax(axis=2)
-    np.put_along_axis(member, edge_cell_f0[:, :, None], False, axis=2)
-    edge_cell_f1 = member.argmax(axis=2)
-    del member, f_owner, f_neigh
+    if native is not None:
+        edge_cell_f0, edge_cell_f1 = native.edge_cell_face_pairs(
+            edge_faces, ef_mask, edge_cells, ec_mask, owner, neighbour_full)
+    else:
+        edge_cell_f0, edge_cell_f1 = _edge_cell_face_pairs(
+            edge_faces, ef_mask, edge_cells, ec_mask, owner, neighbour_full)
 
     # point adjacency
     pp_mask, point_points = pad_groups(
@@ -275,7 +290,7 @@ def compile_topology(mesh: PolyMesh) -> MeshTopology:
         edges[point_edges, 0] == np.arange(N, dtype=np.int32)[:, None],
         np.int32(0), np.int32(1))
     pf_mask, point_faces, wedge_prev_arr, wedge_next_arr = _point_faces_wedges(
-        flat, offs, counts, face_of_entry, slot, N
+        flat, offs, counts, face_of_entry, slot, N, native
     )
     del slot
     # point_cells via (cell, point) incidence from faces
@@ -283,7 +298,11 @@ def compile_topology(mesh: PolyMesh) -> MeshTopology:
     pc_cl = np.concatenate([owner[face_of_entry],
                             neighbour_full[face_of_entry][foe_has_n]])
     del foe_has_n
-    pc_mask, point_cells = pad_groups(pc_pt, N, pc_cl, dedupe_key=pc_cl)
+    if native is not None:
+        pc_mask, point_cells = native.pad_groups_native(pc_pt, N, pc_cl,
+                                                        dedupe=True)
+    else:
+        pc_mask, point_cells = pad_groups(pc_pt, N, pc_cl, dedupe_key=pc_cl)
     del pc_pt, pc_cl, flat, face_of_entry, edge_of_pair
 
     # cell_faces
@@ -291,7 +310,10 @@ def compile_topology(mesh: PolyMesh) -> MeshTopology:
     cf_c = np.concatenate([owner, neighbour_full[has_neighbour]])
     cf_f = np.concatenate([f_ids, f_ids[has_neighbour]])
     del f_ids
-    cf_mask, cell_faces = pad_groups(cf_c, C, cf_f, dedupe_key=cf_f)
+    if native is not None:
+        cf_mask, cell_faces = native.pad_groups_native(cf_c, C, cf_f)
+    else:
+        cf_mask, cell_faces = pad_groups(cf_c, C, cf_f, dedupe_key=cf_f)
     del cf_c, cf_f
 
     # boundary classification
@@ -339,7 +361,32 @@ def compile_topology(mesh: PolyMesh) -> MeshTopology:
     )
 
 
-def _point_faces_wedges(flat, offs, counts, face_of_entry, slot, N):
+def _edge_cell_face_pairs(edge_faces, ef_mask, edge_cells, ec_mask, owner,
+                          neighbour_full):
+    """numpy: per-(edge, cell slot) slots of the edge's two faces in
+    that cell -> (f0, f1); raises on a mesh sanity violation."""
+    f_owner = owner[edge_faces]                  # (E, maxEF)
+    f_neigh = neighbour_full[edge_faces]
+    # membership[e, c, f]: face f of edge e belongs to cell slot c
+    member = (
+        (edge_cells[:, :, None] == f_owner[:, None, :])
+        | (edge_cells[:, :, None] == f_neigh[:, None, :])
+    )
+    member &= ec_mask[:, :, None] & ef_mask[:, None, :]
+    n_member = member.sum(axis=2)
+    if np.any(n_member[ec_mask] != 2):
+        bad = np.argwhere((n_member != 2) & ec_mask)
+        raise ValueError(
+            "mesh sanity: edge/cell with != 2 adjacent edge-faces: "
+            f"{bad[:5]}"
+        )
+    f0 = member.argmax(axis=2)
+    np.put_along_axis(member, f0[:, :, None], False, axis=2)
+    return f0, member.argmax(axis=2)
+
+
+def _point_faces_wedges(flat, offs, counts, face_of_entry, slot, N,
+                        native=None):
     """point_faces plus per-incidence wedge neighbours (prev/next in face)."""
     offs32 = offs.astype(np.int32)   # values <= M < 2^31
     prv_slot = slot - 1
@@ -349,5 +396,29 @@ def _point_faces_wedges(flat, offs, counts, face_of_entry, slot, N):
     nxt_slot[wrap] = 0
     prev_pt = flat[offs32[face_of_entry] + prv_slot]
     next_pt = flat[offs32[face_of_entry] + nxt_slot]
+    if native is not None:
+        # three order-preserving fills land in aligned slots
+        mask, pfaces = native.pad_groups_native(flat, N, face_of_entry)
+        _, wprev = native.pad_groups_native(flat, N, prev_pt)
+        _, wnext = native.pad_groups_native(flat, N, next_pt)
+        return mask, pfaces, wprev, wnext
     return pad_groups(flat, N, face_of_entry, prev_pt, next_pt,
                       dedupe_key=None)
+
+
+#: (mask, table) pairs of the padded rows
+ROW_MASKS = ("face_mask", "edge_faces_mask", "edge_cells_mask",
+             "point_points_mask", "point_cells_mask", "point_faces_mask",
+             "point_edges_mask", "cell_faces_mask")
+
+
+def rows_not_left_packed(topo: MeshTopology) -> list:
+    """The row masks of ``topo`` in which some row is not left-packed
+    (mask != arange(W) < count, what K3 and the slot loops assume)."""
+    bad = []
+    for name in ROW_MASKS:
+        m = getattr(topo, name)
+        if not np.array_equal(
+                m, np.arange(m.shape[1]) < m.sum(axis=1)[:, None]):
+            bad.append(name)
+    return bad

@@ -26,6 +26,7 @@ its JAX counterpart is plain XLA.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -376,6 +377,32 @@ def face_angles_per_point_plain(points, means, cell_ctrs, td):
     return up[:, 0], up[:, 1]
 
 
+class FaceAngleBand(NamedTuple):
+    """The face-angle fixed point's decision of which points it visits."""
+
+    active: torch.Tensor    # (N,) bool: current angles outside the band
+    min_angle: float        # the thresholds in the values' space
+    max_angle: float
+    det_eps: float          # the guard against last-bit "deteriorations"
+
+
+def face_angle_band(cur_min, cur_max, min_angle_rad, max_angle_rad,
+                    u_space=False, guarded=False) -> FaceAngleBand:
+    """The points the face-angle fixed point visits: current min angle
+    <= min_angle or current max >= max_angle (the reference skips the
+    others, src/smoothMesh.C:1367).  ``u_space``: the values are u
+    values, so the thresholds map to u; ``guarded``: the current values
+    come from another arithmetic path than the fixed point's (K5/K6),
+    so deteriorations below ``det_eps`` = 1e-5 u are ignored.  No host
+    read: the batched driver counts ``active`` on the device."""
+    if u_space:
+        min_angle_rad = angle_to_u(min_angle_rad)
+        max_angle_rad = angle_to_u(max_angle_rad)
+    det_eps = 1e-5 if (u_space and guarded) else 0.0
+    active = (cur_min <= min_angle_rad) | (cur_max >= max_angle_rad)
+    return FaceAngleBand(active, min_angle_rad, max_angle_rad, det_eps)
+
+
 def restrict_face_angle_deterioration(points, cell_ctrs, proposed, td,
                                       min_angle_rad, max_angle_rad, frozen,
                                       fc_base=None, cur_minmax=None,
@@ -386,8 +413,9 @@ def restrict_face_angle_deterioration(points, cell_ctrs, proposed, td,
     The parallel fixed point of the reference's stack propagation
     (src/smoothMesh.C:1320-1437), as the JAX function computes it:
 
-    1. active points: current min angle <= min_angle or current max
-       >= max_angle (the reference skips the others, :1367);
+    1. active points (:func:`face_angle_band`): current min angle <=
+       min_angle or current max >= max_angle (the reference skips the
+       others, :1367);
     2. self phase, under the incoming mask: an active, moving, unfrozen
        point p freezes if p alone at its proposal deteriorates its own
        angles;
@@ -424,11 +452,9 @@ def restrict_face_angle_deterioration(points, cell_ctrs, proposed, td,
             points, cell_ctrs, td, fc_base)
     else:
         cur_min, cur_max = cur_minmax
-    if u_space:
-        min_angle_rad = angle_to_u(min_angle_rad)
-        max_angle_rad = angle_to_u(max_angle_rad)
-    det_eps = 1e-5 if (u_space and cur_minmax is not None) else 0.0
-    active = (cur_min <= min_angle_rad) | (cur_max >= max_angle_rad)
+    active, min_angle_rad, max_angle_rad, det_eps = face_angle_band(
+        cur_min, cur_max, min_angle_rad, max_angle_rad, u_space,
+        guarded=cur_minmax is not None)
     act_idx = torch.nonzero(active).squeeze(1)           # host read
     if stats is not None:
         stats.update(active=act_idx.numel(), sweeps=0)

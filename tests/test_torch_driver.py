@@ -53,6 +53,16 @@ CARRY_AT = 2     # iterations before the state is carried across
 BND_CASES = ["tc7", "tc5"]
 #: the boundary runs' max step: above their raw step range (see above)
 BND_MAX_STEP = 0.25
+#: the runs with the face angle off: ITERS iterations, and the relTol
+#: stop (a max step large enough for the residual to fall within a few
+#: iterations: 1.0, 1.0, 0.23, 0.12, 0.079, 0.054, 0.039, ...)
+RUNS = {"plain": dict(centroidal_iters=ITERS, rel_tol=0.0),
+        "rel_tol": dict(centroidal_iters=15, rel_tol=0.05,
+                        max_step_length=0.05)}
+#: the fatal ray-miss runs: the face angle off (it builds quicker and
+#: plays no part there)
+FATAL_MISS = dict(smoothing_patches=("top",), ray_miss_fatal=True,
+                  face_angle_constraint=False)
 
 
 def _mesh():
@@ -122,6 +132,41 @@ def _jax_face_angle_run(band):
     return results, state, sj.denormalize()
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_run(name):
+    """The JAX smoother with the face angle off, run to its
+    centroidal_iters -> (results, final points)."""
+    sj = _jax_smoother(**RUNS[name])
+    results = sj.steps(RUNS[name]["centroidal_iters"])
+    return results, sj.denormalize()
+
+
+def _half_dome():
+    """The dome's target surface over x <= 0.5 only, for the 4x4x4
+    block with a top patch: the rays of the top points at x = 0.5 and
+    0.75 miss it -> (V, T, bpts, bedges)."""
+    _, V, T, bpts, bedges = ttc.dome_geometry()
+    return V, T[(V[T][..., 0] <= 0.5).all(axis=1)], bpts, bedges
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fatal_miss_run():
+    """The JAX ``steps(2)`` under ray_miss_fatal onto the half dome:
+    it raises after the first iteration -> (its iteration count, its
+    points)."""
+    with pytest.MonkeyPatch.context() as mp:
+        # as _jax_boundary_run: the set-up's normals jitted
+        mp.setattr(jax_driver.geo, "boundary_point_normals",
+                   jax.jit(jax_driver.geo.boundary_point_normals))
+        sj = JaxSmoother(jax_hex(n=(4, 4, 4), patches=ttc.TOP_PATCHES),
+                         JaxParams(**FATAL_MISS), dtype=np.float64,
+                         use_tile_engine=False)
+        sj.enable_boundary_smoothing(*_half_dome())
+        with pytest.raises(RuntimeError, match="surface intersection"):
+            sj.steps(2)
+    return sj._iteration, sj.denormalize()
+
+
 def _bnd_case(testcases, name):
     """A boundary testcase and its parameters for ITERS iterations."""
     tc = testcases.ALL[name]()
@@ -162,17 +207,15 @@ def _assert_same_run(got, want):
 
 
 def test_smoother_matches_jax_f64():
-    kw = dict(centroidal_iters=ITERS, rel_tol=0.0)
-    sj = _jax_smoother(**kw)
-    want = sj.steps(ITERS)
-    st = _smoother(**kw)
+    want, want_pts = _jax_run("plain")
+    st = _smoother(**RUNS["plain"])
     assert st.points.dtype == torch.float64
     got = st.steps(ITERS)
     _assert_same_run(got, want)
     assert 0 < got[-1].n_frozen < st.topo.n_points
     moved = np.abs(st.denormalize() - _mesh().points).max()
     assert moved > 1e-3
-    np.testing.assert_allclose(st.denormalize(), sj.denormalize(), rtol=0,
+    np.testing.assert_allclose(st.denormalize(), want_pts, rtol=0,
                                atol=1e-9)
 
 
@@ -207,11 +250,8 @@ def test_state_from_jax_matches():
 
 
 def test_rel_tol_stop_matches_jax():
-    # a max step large enough for the residual to fall within a few
-    # iterations (1.0, 1.0, 0.23, 0.12, 0.079, 0.054, 0.039, ...)
-    kw = dict(centroidal_iters=15, rel_tol=0.05, max_step_length=0.05)
-    want = _jax_smoother(**kw).steps(15)
-    got = _smoother(**kw).steps(15)
+    want, _ = _jax_run("rel_tol")
+    got = _smoother(**RUNS["rel_tol"]).steps(15)
     assert 3 < len(got) < 15
     _assert_same_run(got, want)
     assert got[-1].residual < 0.05 <= got[-2].residual
@@ -291,8 +331,7 @@ def test_unsupported_configurations_raise():
     assert np.isfinite(st.step().residual)
     # a target surface over x <= 0.5 only: the rays of the top points
     # at x = 0.5 and 0.75 miss it
-    _, V, T, bpts, bedges = ttc.dome_geometry()
-    half = T[(V[T][..., 0] <= 0.5).all(axis=1)]
+    V, half, bpts, bedges = _half_dome()
     for fatal in (True, False):
         st = Smoother(mesh, SmoothingParams(smoothing_patches=("top",),
                                             ray_miss_fatal=fatal),
@@ -304,31 +343,17 @@ def test_unsupported_configurations_raise():
                 st.step()
             np.testing.assert_array_equal(st.denormalize(), before)
             assert st._iteration == 1
-            # steps against the JAX steps (the face angle off: it builds
-            # quicker and plays no part here)
-            kw = dict(smoothing_patches=("top",), ray_miss_fatal=True,
-                      face_angle_constraint=False)
-            st = Smoother(mesh, SmoothingParams(**kw), device="cpu",
+            # steps against the JAX steps
+            st = Smoother(mesh, SmoothingParams(**FATAL_MISS), device="cpu",
                           dtype=torch.float64)
             st.enable_boundary_smoothing(V, half, bpts, bedges)
             with pytest.raises(RuntimeError, match="surface intersection"):
                 st.steps(2)
-            with pytest.MonkeyPatch.context() as mp:
-                # as _jax_boundary_run: the set-up's normals jitted
-                mp.setattr(jax_driver.geo, "boundary_point_normals",
-                           jax.jit(jax_driver.geo.boundary_point_normals))
-                sj = JaxSmoother(
-                    jax_hex(n=(4, 4, 4), patches=ttc.TOP_PATCHES),
-                    JaxParams(**kw), dtype=np.float64,
-                    use_tile_engine=False)
-                sj.enable_boundary_smoothing(V, half, bpts, bedges)
-                with pytest.raises(RuntimeError,
-                                   match="surface intersection"):
-                    sj.steps(2)
-            assert st._iteration == sj._iteration == 1
+            jax_iteration, jax_points = _jax_fatal_miss_run()
+            assert st._iteration == jax_iteration == 1
             after = st.denormalize()
             assert np.abs(after - before).max() > 1e-3     # committed
-            np.testing.assert_allclose(after, sj.denormalize(), rtol=0,
+            np.testing.assert_allclose(after, jax_points, rtol=0,
                                        atol=1e-12)
             continue
         r = st.step()

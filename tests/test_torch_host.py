@@ -86,13 +86,13 @@ def test_permute_mesh_matches(kind):
 def test_compile_topology_matches(kind):
     tm, _ = permute_mesh(TORCH_MESHES[kind])
     jm, _ = jax_permute(JAX_MESHES[kind])
-    _assert_fields_equal(compile_topology(tm),
+    _assert_fields_equal(compile_topology(tm, use_native=False),
                          jax_compile(jm, use_native=False))
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_to_device_matches(kind):
-    topo = compile_topology(TORCH_MESHES[kind])
+    topo = compile_topology(TORCH_MESHES[kind], use_native=False)
     td = to_device(topo, "cpu")
     want = jax_to_device(jax_compile(JAX_MESHES[kind], use_native=False))
     # the port stages the two packed tables its fixed point reads
