@@ -102,7 +102,28 @@ Phases, each fatal on failure:
      the call; the wall time split into read, set-up (native topology
      compile, upload, classification), smoothing, report and write, and
      the set-up into its parts as in phase 2;
-  8. one JSON line of the kernels, then the last line
+  9. (before the record) the halo decomposition
+     (smoothmesh_torch.parallel): the 128^3 bench mesh in 4 shards on
+     the card through UnionSync (the shards' union, each kernel one
+     launch an iteration over all of them), its set-up split into the
+     shard build (with the four topology compiles), the union and the
+     upload; 8 iterations against the single device from the same
+     start (phase 4's mesh and topology: frozen counts within 1e-4 * N,
+     residuals within 1e-3 relative, all but 1e-4 * N points within
+     1e-5 x the coordinate scale, positive volumes) and the same 8
+     through the plain versions on the union, compared as phase 6
+     compares them (K1, K2, K5 bit for bit, K4 without a mismatch on
+     every iteration's inputs); steps(32) batched against one by one
+     as in phase 4 (bit-equal, 2 host reads, K1-K6 32 launches); the
+     exchanges' device time; quality() from the claims against the
+     global report (integer keys equal, the rest within 5e-4 relative
+     + 1e-5; K7 one launch); at 32^3 the boundary configuration in 4
+     shards against the single device (phase 6's criteria, K8 launched
+     every iteration); and DistSync, 2 gloo ranks in 2 processes sharing
+     cuda:0 (smoothmesh_torch.parallel.ranks), bit-equal to UnionSync
+     with 2 shards after 8 iterations;
+  8. one JSON line of the kernels (with the halo run's launches), one of
+     the halo's figures, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without
@@ -189,6 +210,28 @@ FACE_ANGLE_KEYS = ("edges", "edge_faces", "edge_cells", "edge_cells_mask",
                    "edge_cell_f0", "edge_cell_f1", "edge_cell_words",
                    "point_edges", "point_edges_mask", "pps_signed",
                    "pe_flat")
+#: phase 9: the halo's shards at 128^3 and 32^3, the iterations held
+#: against the single device, and its tolerances there: frozen counts
+#: and the points beyond HALO_POINT_TOL x the coordinate scale, each at
+#: most HALO_COUNT_TOL x N; no point beyond HALO_POINT_MAX x the scale;
+#: residuals relative
+HALO_SHARDS = 4
+HALO_ITERS = 8
+HALO_COUNT_TOL = 1e-4
+HALO_RES_TOL = 1e-3
+HALO_POINT_TOL = 1e-5
+HALO_POINT_MAX = 1e-4
+#: DistSync's ranks (gloo, sharing cuda:0)
+DIST_WORLD = 2
+
+
+T_START = time.perf_counter()
+
+
+def wall_clock(what: str) -> None:
+    """Print the seconds since the script started, where ``what``
+    starts (the phases' share of the command time)."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {what}", flush=True)
 
 
 def require(cond, msg: str) -> None:
@@ -1027,9 +1070,11 @@ def batched_against_one_by_one(sm, n: int, label: str, smi: str,
     start = (sm.points.clone(), sm.normals.clone(), sm._iteration)
     sm.iter_batch = 1
     kernels.reset_launches()
+    wall_clock(f"{label}: one by one")
     t0 = time.perf_counter()
     one = sm.steps(n)
     t_one = time.perf_counter() - t0
+    wall_clock(f"{label}: capture")
     launches_one = {k: k.launches for k in kernels.ALL}
     pts_one, nrm_one = sm.points, sm.normals
     sm.points, sm.normals = start[0].clone(), start[1].clone()
@@ -1041,10 +1086,13 @@ def batched_against_one_by_one(sm, n: int, label: str, smi: str,
     torch.cuda.synchronize()
     reserved = torch.cuda.memory_reserved()
     kernels.reset_launches()
+    wall_clock(f"{label}: batched")
     with host_reads_and_replays() as seen:
         t0 = time.perf_counter()
         batched = sm.steps(n)
         t_batched = time.perf_counter() - t0
+        wall_clock(f"{label}: batched, host reads counted")
+    wall_clock(f"{label}: checks")
     launches = {k: k.launches for k in kernels.ALL}
     peak = torch.cuda.max_memory_allocated()
     require(len(one) == len(batched) == n, f"{label}: {len(one)} and "
@@ -1054,8 +1102,8 @@ def batched_against_one_by_one(sm, n: int, label: str, smi: str,
     require(torch.equal(pts_one, sm.points)
             and torch.equal(nrm_one, sm.normals),
             f"{label}: the batched points or normals are not bit-equal "
-            f"to the one-by-one ones ({bits_differing(sm.points, pts_one)}"
-            " values differ)")
+            "to the one-by-one ones "
+            f"({bits_differing([sm.points], [pts_one])} values differ)")
     want_reads = -(-n // ITER_BATCH)
     require(seen["syncs"] == want_reads and seen["replays"] == n
             and sm.face_angle_stops == 0,
@@ -1231,6 +1279,322 @@ def cli_phase(mesh, smi: str) -> dict:
                 setup_split_s=parts, report=reports[0])
 
 
+def halo_compare(label: str, got, want, n: int, got_pts, want_pts,
+                 scale: float) -> dict:
+    """Phase 9: a halo run against the single-device run of the same
+    start: frozen counts within HALO_COUNT_TOL * n, residuals within
+    HALO_RES_TOL relative, all but HALO_COUNT_TOL * n points within
+    HALO_POINT_TOL * ``scale`` (the coordinate scale) and every point
+    within HALO_POINT_MAX * ``scale`` -> the largest differences and
+    the count of points bit-equal."""
+    require(len(got) == len(want), f"{label}: {len(got)} and {len(want)} "
+            "iterations ran")
+    d_frozen = max(abs(a.n_frozen - b.n_frozen) for a, b in zip(got, want))
+    d_res = max(abs(a.residual - b.residual) / max(abs(b.residual), 1e-30)
+                for a, b in zip(got, want))
+    dist = np.linalg.norm(got_pts - want_pts, axis=1)
+    far = int((dist > HALO_POINT_TOL * scale).sum())
+    require(d_frozen <= HALO_COUNT_TOL * n and d_res <= HALO_RES_TOL
+            and far <= HALO_COUNT_TOL * n
+            and float(dist.max()) <= HALO_POINT_MAX * scale,
+            f"{label}: frozen counts {d_frozen} apart, residuals "
+            f"{d_res:.3g} relative, {far} points beyond "
+            f"{HALO_POINT_TOL} x {scale:.4g}, the farthest "
+            f"{float(dist.max()):.3g}")
+    return dict(frozen=d_frozen, residual_rel=d_res, far_points=far,
+                max_point_diff=float(dist.max()),
+                points_bit_equal=int((got_pts == want_pts).all(1).sum()))
+
+
+def halo_phase(mesh, mesh_int, topo, orders, smi: str) -> dict:
+    """Phase 9: the halo decomposition (smoothmesh_torch.parallel) ->
+    its launches at 128^3 (K1-K6 in the batched steps, K7 in its
+    quality report) and in the 32^3 boundary run (K8), and its
+    figures."""
+    from smoothmesh_torch import geometry as geo
+    from smoothmesh_torch import kernels
+    from smoothmesh_torch.device import to_device
+    from smoothmesh_torch.driver import Smoother, iteration_body
+    from smoothmesh_torch.parallel.halo import HaloSmoother
+    from smoothmesh_torch.parallel.ranks import Job, run_ranks
+    from smoothmesh_torch.params import SmoothingParams
+    from smoothmesh_torch.quality import (CUDA_QUALITY_TD_KEYS,
+                                          quality_report)
+    from smoothmesh_torch.testcases import bench_dome_geometry
+
+    out = {}
+    N = mesh.n_points
+    params = SmoothingParams(centroidal_iters=MAIN_ITERS, rel_tol=0.0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hs = HaloSmoother(mesh, params, n_shards=HALO_SHARDS, device="cuda")
+    t_setup = time.perf_counter() - t0
+    U = hs.topo.n_points
+    n_pairs = int(hs.sync.rows.numel())
+    print(f"halo at {MAIN_SIDE}^3, {HALO_SHARDS} shards (UnionSync): union "
+          f"{U} points = {U / N:.4f} N, {hs.topo.n_cells} cells, "
+          f"{hs.topo.n_faces} faces, {hs.topo.n_edges} edges; "
+          f"{hs.sync.n_slots} shared points in {n_pairs} (point, holder) "
+          f"rows; set-up {t_setup:.2f} s: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in hs.setup_times.items())
+          + " (the compiles are inside the shard build)", flush=True)
+    out.update(union_over_n=U / N, setup_s=t_setup,
+               setup_parts=dict(hs.setup_times), shared_points=hs.sync.n_slots)
+    start = (hs.points.clone(), hs.normals.clone())
+
+    wall_clock("phase 9: against the single device")
+    # -- against the single-device run, 8 iterations
+    single = Smoother(mesh_int, dataclasses.replace(
+        params, centroidal_iters=HALO_ITERS), topo=topo, device="cuda")
+    want = single.steps(HALO_ITERS)
+    want_pts = single.denormalize()[orders.point_new]
+    single_centre = (single._center, single._scale)
+    del single
+    torch.cuda.empty_cache()
+    got = hs.steps(HALO_ITERS)
+    got_pts = hs.denormalize()
+    out["vs_single"] = halo_compare(
+        f"halo {MAIN_SIDE}^3 against the single device", got, want, N,
+        got_pts, want_pts, float(np.abs(want_pts).max()))
+    fg = geo.face_centres_areas(hs.points, hs.td["face_points"],
+                                hs.td["face_mask"], hs.td["face_npoints"])
+    vmin = float(geo.cell_centres_vols(fg, hs.td)[1].min())
+    require(vmin > 0, f"halo {MAIN_SIDE}^3: cell volume {vmin}")
+    del fg
+    print(f"halo {MAIN_SIDE}^3 x {HALO_ITERS} against the single device "
+          f"from the same start: {out['vs_single']}; frozen "
+          f"{[r.n_frozen for r in got]} vs {[r.n_frozen for r in want]}; "
+          f"min cell volume {vmin:.4g}", flush=True)
+
+    # -- again from the single device's centring (its mean over its own
+    # point order rounds otherwise than the halo's): what is left apart
+    # is the shards' own stencil orders
+    centre = hs._center
+    require(single_centre[1] == hs._scale, f"halo {MAIN_SIDE}^3: scale "
+            f"{hs._scale} against the single device's {single_centre[1]}")
+    hs.points = hs._tensor((hs.union.points - single_centre[0]) * hs._scale,
+                           hs.dtype)
+    hs.normals = start[1].clone()
+    hs._iteration = 0
+    hs._center = single_centre[0]
+    got_c = hs.steps(HALO_ITERS)
+    pts_c = hs.denormalize()
+    hs._center = centre
+    out["vs_single_same_centre"] = halo_compare(
+        f"halo {MAIN_SIDE}^3 from the single device's centring", got_c, want,
+        N, pts_c, want_pts, float(np.abs(want_pts).max()))
+    print(f"halo {MAIN_SIDE}^3 x {HALO_ITERS} against the single device, "
+          f"from its centring (differs from the halo's by "
+          f"{np.abs(single_centre[0] - centre).max():.3g}): "
+          f"{out['vs_single_same_centre']}", flush=True)
+    del got_c, pts_c
+
+    wall_clock("phase 9: plain versions on the union")
+    # -- the same 8 iterations through the plain versions on the union
+    td_p = with_plain_tables(hs.td, hs.topo)
+    pts_p = start[0].clone()
+    exact = {}
+    for i, r in enumerate(got):
+        pts_p, _, res_p, nf_p, _, _ = iteration_body(
+            pts_p, td_p, hs.params, hs._scale, exact_stages(exact),
+            sync=hs.sync, owned=hs.owned)
+        res_p, nf_p = float(res_p), int(nf_p)
+        where = f"halo {MAIN_SIDE}^3 plain, iteration {i + 1}"
+        require(abs(r.residual - res_p) < 2e-3, f"{where}: residual "
+                f"{r.residual} (kernels) vs {res_p} (plain)")
+        require(abs(r.n_frozen - nf_p) <= 0.1 * nf_p + 10, f"{where}: "
+                f"nFrozen {r.n_frozen} (kernels) vs {nf_p} (plain)")
+    require(exact["calls"] == HALO_ITERS and exact["k1_bits"] == 0
+            and exact["k2_bits"] == 0 and exact["k4_mismatches"] == 0
+            and exact["k5_bits"] == 0,
+            f"halo {MAIN_SIDE}^3: K1, K2, K4 and K5 against their plain "
+            f"versions on each iteration's inputs: {exact}")
+    print(f"halo {MAIN_SIDE}^3 x {HALO_ITERS} through the plain versions "
+          f"on the union: agree (last residual {got[-1].residual:.6g} vs "
+          f"{res_p:.6g}, nFrozen {got[-1].n_frozen} vs {nf_p}); K1, K2, K5 "
+          f"bit-equal and K4 without a mismatch on every iteration's "
+          f"inputs: {exact}", flush=True)
+    del td_p, pts_p
+    out["plain_exact"] = exact
+
+    wall_clock("phase 9: batched against one by one")
+    # -- steps(32) batched against one iteration a dispatch
+    hs.points, hs.normals = start[0].clone(), start[1].clone()
+    hs._iteration = 0
+    torch.cuda.synchronize()
+    out["allocated_before_gb"] = torch.cuda.memory_allocated() / 1e9
+    print(f"halo {MAIN_SIDE}^3: {out['allocated_before_gb']:.3f} GB "
+          f"allocated before steps(32) (device topology "
+          f"{nbytes(*hs.td.values()) / 1e9:.3f} GB)", flush=True)
+    run = batched_against_one_by_one(
+        hs, MAIN_ITERS, f"halo {MAIN_SIDE}^3, {HALO_SHARDS} shards", smi,
+        {k: (0 if k in (kernels.RAYCAST, kernels.TABLE_GATHER)
+             else MAIN_ITERS) for k in kernels.ALL})
+    out.update(ms_batched=run["ms_batched"], ms_one=run["ms_one"],
+               peak_gb=run["peak_gb"], capture_s=run["capture_s"])
+    launches = dict(run["launches"])
+
+    # -- the exchanges' device time an iteration: one consensus of the
+    # proposal, the two ORs of the freeze mask
+    sync, owned = hs.sync, hs.owned
+    prop = hs.points + 0.25
+    frozen = hs.points[:, 0] > 0
+
+    def exchanges():
+        sync.consensus(prop)
+        f = sync.or_(frozen & owned)
+        sync.or_(f)
+
+    wall_clock("phase 9: the exchanges' time")
+    eager_ms = device_ms(exchanges, 20)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        exchanges()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        exchanges()
+    x_ms = device_ms(graph.replay, 20)
+    del graph
+    out.update(exchange_ms=x_ms, exchange_eager_ms=eager_ms,
+               exchange_share=x_ms / run["ms_batched"])
+    print(f"halo {MAIN_SIDE}^3: the exchanges (one consensus, two ORs) "
+          f"{x_ms:.4f} ms of device time an iteration as a graph replay "
+          f"({100 * x_ms / run['ms_batched']:.2f}% of the batched "
+          f"{run['ms_batched']:.4f} ms/iteration), {eager_ms:.4f} ms "
+          f"launched one by one, on {smi}", flush=True)
+    del prop, frozen
+
+    wall_clock("phase 9: quality")
+    # -- quality() from the claims against the global report
+    hs.quality()                               # stages its tables
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rep = hs.quality()
+    torch.cuda.synchronize()
+    q_ms = (time.perf_counter() - t0) * 1e3
+    launches[kernels.TABLE_GATHER] = kernels.TABLE_GATHER.launches
+    require(kernels.TABLE_GATHER.launches == 1,
+            f"halo quality(): K7 launched {kernels.TABLE_GATHER.launches}")
+    ext = hs.denormalize()[orders.point_old]   # mesh_int's order
+    td_g = to_device(topo, "cuda", CUDA_QUALITY_TD_KEYS)
+    rep0 = quality_report(torch.tensor((ext - hs._center) * hs._scale,
+                                       dtype=torch.float32, device=hs.device),
+                          td_g)
+    s = hs._scale
+    for k in ("min_edge_length", "max_edge_length"):
+        rep0[k] /= s
+    for k in ("min_volume", "max_volume", "total_volume",
+              "min_pyramid_volume"):
+        rep0[k] /= s ** 3
+    bad = [k for k, v in rep0.items()
+           if (rep[k] != v if isinstance(v, int)
+               else abs(rep[k] - v) > 5e-4 * abs(v) + 1e-5)]
+    require(not bad, f"halo quality(): {bad} differ from the global "
+            f"report: {[(k, rep[k], rep0[k]) for k in bad]}")
+    require(rep["n_negative_volumes"] == 0, "halo: negative volumes")
+    print(f"halo {MAIN_SIDE}^3 quality() from the claims in {q_ms:.1f} ms: "
+          f"equal to the global report (integers equal, the rest within "
+          f"5e-4 relative + 1e-5): min face angle "
+          f"{rep['min_face_angle_deg']:.4f} deg, max non-orthogonality "
+          f"{rep['max_non_ortho_deg']:.4f}", flush=True)
+    out["quality_ms"] = q_ms
+    del hs, td_g, start, run, sync, owned
+    torch.cuda.empty_cache()
+
+    wall_clock("phase 9: 32^3 one shard")
+    # -- 32^3, one shard from the single device's centring: the union's
+    # build and the hooks change no bit of the single-device run
+    small = bench_mesh(SMALL_SIDE)
+    p1 = SmoothingParams(centroidal_iters=SMALL_ITERS, rel_tol=0.0)
+    s1 = Smoother(small, p1, device="cuda")
+    want = s1.steps(SMALL_ITERS)
+    h1 = HaloSmoother(small, p1, n_shards=1, device="cuda")
+    require(h1._scale == s1._scale, f"halo {SMALL_SIDE}^3, one shard: scale "
+            f"{h1._scale} against the single device's {s1._scale}")
+    h1.points = h1._tensor((h1.union.points - s1._center) * h1._scale,
+                           h1.dtype)
+    h1._center = s1._center
+    got = h1.steps(SMALL_ITERS)
+    require([dataclasses.astuple(r)[:3] for r in got]
+            == [dataclasses.astuple(r)[:3] for r in want]
+            and np.array_equal(h1.denormalize(), s1.denormalize()),
+            f"halo {SMALL_SIDE}^3, one shard, from the single device's "
+            f"centring: not bit-equal to it ({got[-1]} vs {want[-1]})")
+    print(f"halo {SMALL_SIDE}^3 x {SMALL_ITERS}, one shard from the single "
+          f"device's centring: points, residuals and frozen counts "
+          f"bit-equal to the single device", flush=True)
+    del s1, h1
+
+    wall_clock("phase 9: 32^3 boundary")
+    # -- 32^3 boundary configuration, 4 shards against the single device
+    bparams = dataclasses.replace(boundary_params(SMALL_ITERS),
+                                  max_step_length=SMALL_BND_MAX_STEP)
+    geom = bench_dome_geometry()[1:]
+    sk = Smoother(small, bparams, device="cuda")
+    sk.enable_boundary_smoothing(*geom)
+    want = sk.steps(SMALL_ITERS)
+    want_pts = sk.denormalize()
+    hb = HaloSmoother(small, bparams, n_shards=HALO_SHARDS, device="cuda")
+    hb.enable_boundary_smoothing(*geom)
+    hb.prepare_batch()
+    kernels.reset_launches()
+    got = hb.steps(SMALL_ITERS)
+    launches_bnd = {k: k.launches for k in kernels.ALL}
+    for a, b in zip(got, want):
+        require(abs(a.residual - b.residual) < 2e-3
+                and abs(a.n_frozen - b.n_frozen) <= 0.1 * b.n_frozen + 10
+                and a.n_ray_miss == b.n_ray_miss and a.residual < 1.0,
+                f"halo {SMALL_SIDE}^3 boundary, iteration {a.iteration}: "
+                f"{a} vs {b}")
+    moved = float(np.abs(hb.denormalize() - want_pts).max()) * hb._scale
+    require(moved < BND_POINT_TOL, f"halo {SMALL_SIDE}^3 boundary: points "
+            f"{moved} apart at the end (normalized units)")
+    require(launches_bnd[kernels.RAYCAST] == SMALL_ITERS,
+            f"halo {SMALL_SIDE}^3 boundary: K8 launched "
+            f"{launches_bnd[kernels.RAYCAST]} times")
+    launches[kernels.RAYCAST] = launches_bnd[kernels.RAYCAST]
+    print(f"halo {SMALL_SIDE}^3 x {SMALL_ITERS}, boundary configuration "
+          f"(max step {SMALL_BND_MAX_STEP}), {HALO_SHARDS} shards against "
+          f"the single device: agree (last residual {got[-1].residual:.6g} "
+          f"vs {want[-1].residual:.6g}, nFrozen {got[-1].n_frozen} vs "
+          f"{want[-1].n_frozen}, ray misses {got[-1].n_ray_miss} vs "
+          f"{want[-1].n_ray_miss}; largest point difference {moved:.3g} "
+          f"normalized units); launches "
+          f"{ {k.name: v for k, v in launches_bnd.items() if v} }",
+          flush=True)
+    del sk, hb
+
+    wall_clock("phase 9: DistSync")
+    # -- DistSync: 2 gloo ranks in 2 processes on cuda:0 against UnionSync
+    dparams = SmoothingParams(centroidal_iters=SMALL_ITERS, rel_tol=0.0)
+    hu = HaloSmoother(small, dparams, n_shards=DIST_WORLD, device="cuda")
+    want = [dataclasses.astuple(r) for r in hu.steps(SMALL_ITERS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = run_ranks(Job(small, dparams, SMALL_ITERS), DIST_WORLD, tmp,
+                          timeout_s=300)
+        t_dist = time.perf_counter() - t0
+    base = hu.union.base[:, 0]
+    for rank, r in enumerate(ranks):
+        require([x[:3] + x[4:] for x in r["results"]]
+                == [x[:3] + x[4:] for x in want],
+                f"DistSync rank {rank}: results differ from UnionSync's")
+        require(torch.equal(r["points"],
+                            hu.points[base[rank]:base[rank + 1]].cpu()),
+                f"DistSync rank {rank}: points not bit-equal to UnionSync's")
+        require(np.array_equal(r["denormalized"], hu.denormalize()),
+                f"DistSync rank {rank}: the global points differ")
+    print(f"halo {SMALL_SIDE}^3 x {SMALL_ITERS}, DistSync ({DIST_WORLD} gloo "
+          f"ranks in {DIST_WORLD} processes on cuda:0) against UnionSync "
+          f"({DIST_WORLD} shards): points, residuals and counts bit-equal "
+          f"(last residual {want[-1][1]:.6g}, nFrozen {want[-1][2]}); "
+          f"the ranks took {t_dist:.1f} s with their start-up", flush=True)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1248,6 +1612,7 @@ def main() -> int:
     from smoothmesh_torch.ops import smoothing as smo
     from smoothmesh_torch.params import SmoothingParams
 
+    wall_clock("phase 1")
     # -- 1. device + build -------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1271,6 +1636,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {k.source}: {line.strip()}")
 
+    wall_clock("phase 2")
     # -- 2. the main path's mesh --------------------------------------------
     t0 = time.perf_counter()
     mesh = bench_mesh(MAIN_SIDE)
@@ -1294,6 +1660,7 @@ def main() -> int:
           f"which the face angle's tables {fa_bytes / 1e9:.3f} GB "
           f"({topo.n_edges} edges)", flush=True)
 
+    wall_clock("phase 3")
     # -- 3. each kernel against its plain version ---------------------------
     p = sm.params
     max_step = p.max_step_length * sm._scale
@@ -1570,6 +1937,7 @@ def main() -> int:
     del fg_p, cc_p, vol_p, prop_p, curmin_p, frz_p, ue_p, up_p, cur_k, cur_p
     del td_p, pfm, wpv, wnx, own, cf, cfm
 
+    wall_clock("phase 4")
     # -- 4. the default path through the user's entry point ------------------
     main = batched_against_one_by_one(
         sm, MAIN_ITERS, f"default path at {MAIN_SIDE}^3", smi,
@@ -1597,15 +1965,17 @@ def main() -> int:
           f"{vmin:.4g} (normalized units)", flush=True)
     del fg, vol
     quality = quality_phase(sm, smi)
-    mesh_int = sm.mesh_internal
+    mesh_int, orders = sm.mesh_internal, sm._orders
     del sm, td, pts
 
+    wall_clock("phase 5")
     # -- 5. the boundary path on the same mesh and topology -------------------
     bnd = boundary_path(topo, mesh_int, smi)
     results[kernels.RAYCAST] = bnd["record"]
     results[kernels.PREDICTOR]["share_test_points_boundary"] = \
         bnd["k3_share_test_points"]
 
+    wall_clock("phase 6")
     # -- 6. 32^3: kernels against plain versions over 8 iterations ----------
     small = bench_mesh(SMALL_SIDE)
     configs = [("face angle off", dict(face_angle_constraint=False)),
@@ -1700,11 +2070,18 @@ def main() -> int:
           f" and K5 {exact['k5_bits']} values not bit-equal, K4 "
           f"{exact['k4_mismatches']} mask mismatches", flush=True)
 
+    wall_clock("phase 7")
     # -- 7. the CLI at full size ------------------------------------------
     del small, sk, pts_p, nrm_p, td_p
     torch.cuda.empty_cache()
     cli = cli_phase(mesh, smi)
 
+    wall_clock("phase 9")
+    # -- 9. the halo decomposition ------------------------------------------
+    torch.cuda.empty_cache()
+    halo = halo_phase(mesh, mesh_int, topo, orders, smi)
+
+    wall_clock("phase 8")
     # -- 8. the record ----------------------------------------------------
     main_path = {kernels.RAYCAST: bnd["launches"],
                  kernels.TABLE_GATHER: cli["launches"]}
@@ -1713,12 +2090,15 @@ def main() -> int:
         results[k]["launches_default_path"] = launches[k]
         results[k]["launches_boundary_path"] = bnd["launches"][k]
         results[k]["launches_cli"] = cli["launches"][k]
+        results[k]["launches_halo"] = halo["launches"][k]
     for k in (kernels.FACE_GEOMETRY, kernels.CELL_CENTRES, kernels.FREEZE,
               kernels.FACE_ANGLES):
         results[k]["small_runs_exact"] = small_exact
     results[kernels.TABLE_GATHER]["quality_report_ms"] = quality["ms"]
     results[kernels.TABLE_GATHER]["quality_report_plain_ms"] = \
         quality["plain_ms"]
+    print(json.dumps({"halo": {k: v for k, v in halo.items()
+                               if k != "launches"}}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

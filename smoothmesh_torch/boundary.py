@@ -358,7 +358,7 @@ def _project_to_edges_dev(pts, ea, eb):
     return proj, norm3(proj - pts[:, None, :])
 
 
-def feature_edge_projections(points, bd):
+def feature_edge_projections(points, bd, sync=None):
     """Sum and count of the string-filtered projections of each feature
     point's surface neighbours onto the target edges (reference
     calculateFeatureEdgeProjections bPS.C:623-677) -> (sums (N, 3),
@@ -366,6 +366,7 @@ def feature_edge_projections(points, bd):
 
     Only the rows ``bd["feat_rows"]`` (the feature points with
     neighbours, a few hundred of N) are evaluated and scattered back.
+    With the halo exchange ``sync`` a shared point takes its owner's.
     """
     N = points.shape[0]
     rows = bd["feat_rows"]
@@ -386,22 +387,33 @@ def feature_edge_projections(points, bd):
     counts = torch.zeros((N,), dtype=torch.int64, device=points.device)
     sums[rows] = (bestp * fm[..., None].to(points.dtype)).sum(1)
     counts[rows] = fm.sum(1)
+    if sync is not None:
+        sums = sync.sum(sums)
+        counts = sync.sum(counts)
     return sums, counts
 
 
-def surface_centroids(face_centres, td, rows):
+def surface_centroids(face_centres, td, rows, sync=None):
     """Mean of the adjacent real-boundary face centres of the points
     ``rows`` (reference calculateSurfaceCentroids bPS.C:781-839), from
-    this iteration's (F, 3) face centres (K1's output)."""
+    this iteration's (F, 3) face centres (K1's output).  With the halo
+    exchange ``sync`` a shared point takes its owner's sums."""
     pf = td["point_faces"][rows].long()
     sel = td["point_faces_mask"][rows] & td["face_is_real_boundary"][pf]
     sums = (face_centres[pf] * sel[..., None].to(face_centres.dtype)).sum(1)
-    return sums / sel.sum(1).clamp_min(1)[:, None]
+    counts = sel.sum(1)
+    if sync is not None:
+        n = td["point_faces"].shape[0]
+        sums = sync.sum(sums.new_zeros((n, 3)).index_copy_(0, rows, sums))
+        counts = sync.sum(counts.new_zeros(n).index_copy_(0, rows, counts))
+        sums, counts = sums[rows], counts[rows]
+    return sums / counts.clamp_min(1)[:, None]
 
 
 def project_boundary_points(points, proposal, normals, frozen, bd, td,
                             is_sharp, face_centres,
-                            ray_cast=raycast.segment_triangle_hits):
+                            ray_cast=raycast.segment_triangle_hits,
+                            sync=None):
     """Priority projection of boundary points (reference
     projectBoundaryPointsToEdgesAndSurfaces bPS.C:843-945):
 
@@ -421,9 +433,11 @@ def project_boundary_points(points, proposal, normals, frozen, bd, td,
     ``ray_cast``: the ray cast (:func:`raycast.segment_triangle_hits`,
     K8 on CUDA tensors, or its plain version); it runs on the rows
     ``bd["surf_rows"]``, the statically classified superset of the free
-    points.
+    points.  ``sync``: the halo exchange (``parallel.sync``) or None; a
+    shared point's feature projections and face centroid are then its
+    owner's.
     """
-    sums, counts = feature_edge_projections(points, bd)
+    sums, counts = feature_edge_projections(points, bd, sync)
 
     is_corner = bd["is_corner"]
     is_feature = bd["is_feature_edge"]
@@ -446,7 +460,7 @@ def project_boundary_points(points, proposal, normals, frozen, bd, td,
     # (bPS.C:869-885), at the reference's fixed fraction
     srows = bd["smooth_rows"]
     w = FACE_CENTROID_BLENDING_FRACTION
-    out[srows] = (w * surface_centroids(face_centres, td, srows)
+    out[srows] = (w * surface_centroids(face_centres, td, srows, sync)
                   + (1.0 - w) * out[srows])
 
     rows = bd["surf_rows"]

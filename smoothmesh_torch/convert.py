@@ -1,6 +1,7 @@
 """Carry a smoother's state across from the JAX package.
 
-:func:`state_from_jax` builds this package's :class:`Smoother` from
+:func:`state_from_jax` builds this package's :class:`Smoother` (and
+:func:`halo_state_from_jax` its ``HaloSmoother``) from
 plain numpy and Python values read off a ``smoothmesh_tpu`` smoother,
 so both can run on from one identical state.  Nothing here imports the
 JAX package: the caller reads its values.
@@ -70,6 +71,61 @@ def state_from_jax(points, topo_arrays: Mapping, params: Mapping, center,
             rows = np.asarray(host[k])
             host[k] = rows[rows < n]
         sm.bnd = sm._bnd_tables(host)
+    if layer is not None or bnd is not None:
+        sm._stage_normals_tables()
+    return sm
+
+
+def halo_state_from_jax(mesh, n_shards: int, points, params: Mapping,
+                        center, scale: float, device=None, dtype=None,
+                        normals=None, smoothing_surface=None,
+                        layer: Optional[Mapping] = None,
+                        bnd: Optional[Mapping] = None,
+                        bnd_rep: Optional[Mapping] = None,
+                        distance_tolerance: Optional[float] = None):
+    """A :class:`~smoothmesh_torch.parallel.halo.HaloSmoother` on
+    ``device`` from a JAX ``HaloSmoother``'s state, to continue its run.
+
+    mesh, n_shards: the mesh and shard count the JAX smoother was built
+        with; the shards are built again here (the same shards).
+    points: its (D, Npad, 3) internal local points (``sm.points``).
+    params: its resolved ``SmoothingParams`` as a dict.
+    center, scale: its ``_center`` and ``_scale``.
+    normals, smoothing_surface: its (D, Npad, 3) normals and (D, Npad)
+        smoothing-surface mask, as numpy arrays.
+    layer: its ``layer`` dict (``hops_layer``, ``outer_map``: (D, Npad)
+        blocks) or None where off.
+    bnd, bnd_rep, distance_tolerance: its ``_bnd_shard`` and
+        ``_bnd_rep`` dicts with numpy values and its scaled distance
+        tolerance (``_bnd_scalars["distance_tolerance"]``), or None
+        where boundary smoothing is off.
+    """
+    from smoothmesh_torch.device import resolve_device
+    from smoothmesh_torch.parallel.halo import HaloSmoother
+
+    pfields = {f.name for f in dataclasses.fields(SmoothingParams)}
+    resolved = SmoothingParams(**{k: v for k, v in params.items()
+                                  if k in pfields})
+    sm = HaloSmoother.__new__(HaloSmoother)
+    sm._build(mesh, n_shards, distributed=False)
+    un = sm.union
+    sm._start(un.rows(np.asarray(points, dtype=np.float64)), resolved,
+              center, scale, resolve_device(device), dtype)
+    if sm._will_layer and layer is None:
+        raise ValueError(
+            "layer_patches match a patch of the mesh, so the JAX "
+            "smoother blends layers: pass its layer dict as layer=")
+    if normals is not None:
+        sm.normals = sm._tensor(un.rows(np.asarray(normals)), sm.dtype)
+    if smoothing_surface is not None:
+        sm.smoothing_surface = sm._tensor(
+            un.rows(np.asarray(smoothing_surface)), torch.bool)
+    if layer is not None:
+        sm._set_layer({k: np.asarray(v) for k, v in layer.items()})
+    if bnd is not None:
+        sm._set_boundary({k: np.asarray(v) for k, v in bnd.items()},
+                         {k: np.asarray(v) for k, v in bnd_rep.items()},
+                         float(distance_tolerance))
     if layer is not None or bnd is not None:
         sm._stage_normals_tables()
     return sm

@@ -118,6 +118,11 @@ def pack_edge_cells(edge_cell_f0, edge_cell_f1, edge_cells_mask,
     return word.view(np.int16)
 
 
+def _valid_rows(topo: MeshTopology, entity: str, n: int) -> np.ndarray:
+    rows = getattr(topo, f"{entity}_valid_rows", None)
+    return np.ones(n, dtype=bool) if rows is None else rows
+
+
 def to_device(topo: MeshTopology, device=None,
               keys: Optional[Iterable[str]] = None) -> Dict[str, torch.Tensor]:
     """Stage topology arrays (int32 indices, bool masks) on ``device``.
@@ -170,10 +175,12 @@ def to_device(topo: MeshTopology, device=None,
         "is_internal_point": topo.is_internal_point,
         "face_patch": topo.face_patch,
         "face_is_real_boundary": face_is_real_boundary,
-        # Row-validity masks: all True for a single-device mesh
-        "point_valid": np.ones(topo.n_points, dtype=bool),
-        "edge_valid": np.ones(topo.n_edges, dtype=bool),
-        "cell_valid": np.ones(topo.n_cells, dtype=bool),
+        # Row-validity masks: all True for a plain mesh; a topology
+        # padded to common shapes (parallel.halo.pad_topology) carries
+        # them as *_valid_rows attributes, False on its padded rows
+        "point_valid": _valid_rows(topo, "point", topo.n_points),
+        "edge_valid": _valid_rows(topo, "edge", topo.n_edges),
+        "cell_valid": _valid_rows(topo, "cell", topo.n_cells),
     }
     if keys is None or keys & {"pps_signed", "pe_flat"}:
         host.update(_fa_packed(topo))

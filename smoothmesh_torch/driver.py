@@ -161,7 +161,8 @@ class Iteration(NamedTuple):
 def iteration_body(points, td, params: SmoothingParams, scale: float,
                    stages: Stages = KERNEL_STAGES, normals=None,
                    smoothing_surface=None, layer=None, bnd=None,
-                   fixed_point: bool = True, skip=None) -> Iteration:
+                   fixed_point: bool = True, skip=None, sync=None,
+                   owned=None) -> Iteration:
     """One smoothing iteration (reference src/smoothMesh.C:2257-2437)
     -> (new points, normals, residual, frozen count, ray-miss count,
     face-angle active count) (:class:`Iteration`), the scalars as 0-d
@@ -180,6 +181,18 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
     reverts.  ``skip``: a 0-d bool tensor; where it holds, every point
     reverts (the points pass through bit for bit).  With
     ``fixed_point=False`` no step of it reads the host.
+
+    ``sync`` and ``owned``: the halo decomposition's exchange
+    (:mod:`smoothmesh_torch.parallel.sync`) and (N,) owner mask, or
+    None for one shard.  Owned points have complete local stencils, so
+    the iteration is the single-device one plus, at the places of the
+    JAX driver's tile branch (``smoothmesh_tpu/driver.py:137-263``): the
+    predictor's proposal, the normals' sums and the neighbour
+    coordinates taken from the owner (consensus); the ray misses, the
+    frozen and the face-angle band counted on owned points; the
+    stage-S freezes masked to owned points and OR-combined; the
+    face-angle fixed point run from owned points only, its freezes
+    OR-combined; the residual and the counts all-reduced.
     """
     p = params
     min_edge = p.min_edge_length * scale
@@ -193,13 +206,17 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
     if layer is not None or bnd is not None:
         # stateful normals (reference :2266), from K1's area vectors
         normals, is_sharp = lay.accumulate_point_normals(normals, fg.areas,
-                                                         td)
+                                                         td, sync)
     cell_ctrs, _ = stages.cell_centres_vols(fg, td)
     prop, _ = stages.predictor(points, cell_ctrs, td, max_step,
                                p.rel_step_frac, bnd is not None)
+    if sync is not None:
+        # owned proposals are exact; replicas adopt them before any
+        # consumer reads a neighbour's proposal
+        prop = sync.consensus(prop)
 
     if layer is not None:
-        outer = lay.update_neigh_coords(points, layer["outer_map"])
+        outer = lay.update_neigh_coords(points, layer["outer_map"], sync)
         prop = lay.blend_with_orthogonal_points(
             points, prop, td, layer["hops_layer"], normals, outer,
             p.layer_max_blending_fraction, p.layer_edge_length * scale,
@@ -210,11 +227,12 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
     n_ray_miss = 0
     if bnd is not None:
         # boundary point smoothing (reference :2307-2356)
-        inner = lay.update_neigh_coords(points, bnd["inner_map"])
+        inner = lay.update_neigh_coords(points, bnd["inner_map"], sync)
         prop, frozen, no_hit = bps.project_boundary_points(
             points, prop, normals, frozen, bnd, td, is_sharp, fg.centres,
-            ray_cast=stages.ray_cast)
-        n_ray_miss = (no_hit & td["point_valid"]).sum()
+            ray_cast=stages.ray_cast, sync=sync)
+        miss = no_hit & td["point_valid"]
+        n_ray_miss = (miss if owned is None else miss & owned).sum()
         prop = lay.project_prismatic_boundary_points(
             prop, bnd, normals, inner, is_sharp,
             p.internal_smoothing_blending_fraction)
@@ -224,6 +242,9 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
     frozen = stages.freeze_constraints(
         points, prop, td, min_edge, p.total_min_freeze, p.min_angle_rad,
         p.edge_angle_constraint, frozen)
+    if sync is not None:
+        # stage-S decisions hold only where the stencil is complete
+        frozen = sync.or_(frozen & owned)
     n_active = None
     if p.face_angle_constraint:
         # as the JAX driver's tile branch (smoothmesh_tpu/driver.py:321-327)
@@ -232,11 +253,18 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
             frozen = constraints.restrict_face_angle_deterioration(
                 points, cell_ctrs, prop, td, p.min_angle_rad,
                 p.max_angle_rad, frozen, fc_base=fg.means, cur_minmax=cur,
-                u_space=True)
+                u_space=True, eligible=owned)
         else:
             n_active = constraints.face_angle_band(
                 *cur, p.min_angle_rad, p.max_angle_rad, u_space=True,
-                guarded=True).active.sum()
+                guarded=True, eligible=owned).active.sum()
+    if sync is not None:
+        # the shard-local fixed point's freezes, of replicas too
+        frozen = sync.or_(frozen)
+        if n_active is not None:
+            n_active = sync.all_sum(n_active)
+        if bnd is not None:
+            n_ray_miss = sync.all_sum(n_ray_miss)
 
     fixed = ~internal
     if smoothing_surface is not None:
@@ -249,8 +277,12 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
     if skip is not None:
         revert = revert | skip
     new_points = torch.where(revert[:, None], points, prop)
-    n_frozen = (revert & td["point_valid"]).sum()
+    counted = revert & td["point_valid"]
+    n_frozen = (counted if owned is None else counted & owned).sum()
     res = smoothing.calculate_residual(points, new_points, max_step)
+    if sync is not None:
+        res = sync.all_max(res)
+        n_frozen = sync.all_sum(n_frozen)
     return Iteration(new_points, normals, res, n_frozen, n_ray_miss,
                      n_active)
 
@@ -270,7 +302,8 @@ class _Batch:
     point, so after ``done`` the state passes through bit for bit.  On
     the card one iteration is captured as a CUDA graph
     (:class:`kernels.Graph`) on the buffers held here and replayed; on
-    the CPU it runs eagerly.
+    the CPU, and with an exchange that cannot be captured
+    (``parallel.sync.DistSync``), it runs eagerly.
     """
 
     #: the record's columns (float64; counts are exact)
@@ -288,10 +321,12 @@ class _Batch:
                                   dtype=torch.float64, device=dev)
         self._args = (sm.td, sm.params, sm._scale)
         self._kw = dict(smoothing_surface=sm.smoothing_surface,
-                        layer=sm.layer, bnd=sm.bnd)
+                        layer=sm.layer, bnd=sm.bnd, sync=sm.sync,
+                        owned=sm.owned)
         self._fatal = bool(sm.params.ray_miss_fatal) and sm.bnd is not None
-        self.graph = (kernels.Graph(self._iteration) if dev.type == "cuda"
-                      else None)
+        capturable = sm.sync is None or sm.sync.capturable
+        self.graph = (kernels.Graph(self._iteration)
+                      if dev.type == "cuda" and capturable else None)
 
     def _iteration(self) -> None:
         done = self.done
@@ -349,6 +384,9 @@ class Smoother:
         native topology compiler (``compile_topology``, C++ built at
         first use; it raises where it cannot be built).
     device: ``"cuda"`` by default; ``"cpu"`` runs the plain versions.
+    normalize: centre the points and scale them so that the minimum edge
+        length is 1 (float32 stays accurate at any absolute scale);
+        False keeps external coordinates.
 
     ``iter_batch`` (from ``SMOOTHMESH_ITER_BATCH``, default 16, as the
     JAX package): the iterations :meth:`steps` runs a dispatch, with one
@@ -360,7 +398,7 @@ class Smoother:
 
     def __init__(self, mesh: PolyMesh, params: SmoothingParams,
                  dtype=None, topo: Optional[MeshTopology] = None,
-                 device=None):
+                 device=None, normalize: bool = True):
         device = resolve_device(device)
         orders = None
         mesh_int = mesh
@@ -368,8 +406,11 @@ class Smoother:
             mesh_int, orders = permute_mesh(mesh)
             topo = compile_topology(mesh_int)
         stats = mesh_stats(mesh_int.points, topo.edges)
-        center = mesh_int.points.mean(axis=0)
-        scale = 1.0 / max(stats.min_edge_length, 1e-300)
+        if normalize:
+            center = mesh_int.points.mean(axis=0)
+            scale = 1.0 / max(stats.min_edge_length, 1e-300)
+        else:
+            center, scale = np.zeros(3), 1.0
         self.mesh = mesh
         self.mesh_internal = mesh_int
         self.stats = stats
@@ -405,6 +446,9 @@ class Smoother:
                                > 1e-15)
         self.td = to_device(topo, device, td_keys(device, self._will_layer))
         self.points = self._tensor(points, dtype)
+        # the halo exchange and owner mask (parallel.halo); none here
+        self.sync = None
+        self.owned = None
         # boundary point normals (state), the boundary points that may
         # move, and the layer and boundary tables: none until enabled
         self.normals = torch.zeros_like(self.points)
@@ -550,6 +594,11 @@ class Smoother:
             out[k] = self._tensor(host[k], torch.int64)
         return out
 
+    @property
+    def n_points(self) -> int:
+        """The mesh's point count."""
+        return self.topo.n_points
+
     # -- coordinate transforms ---------------------------------------------
     def denormalize(self, pts=None) -> np.ndarray:
         """Internal points -> external coordinates, original point order."""
@@ -574,7 +623,7 @@ class Smoother:
         new_points, normals, res, n_frozen, n_miss, _ = iteration_body(
             self.points, self.td, self.params, self._scale,
             normals=self.normals, smoothing_surface=self.smoothing_surface,
-            layer=self.layer, bnd=self.bnd)
+            layer=self.layer, bnd=self.bnd, sync=self.sync, owned=self.owned)
         scalars = [res.double(), n_frozen.double()]
         if self.bnd is not None:
             scalars.append(n_miss.double())
@@ -656,7 +705,8 @@ class Smoother:
         tensors; built (and on the card captured) anew when one of them
         was replaced.  The batch holds them, so their ids stay theirs."""
         key = (id(self.td), id(self.bnd), id(self.layer),
-               id(self.smoothing_surface), repr(self.params), self._scale,
+               id(self.smoothing_surface), id(self.sync), id(self.owned),
+               repr(self.params), self._scale,
                self.dtype, self.device, self.iter_batch)
         if self._batch is None or self._batch.key != key:
             self._batch = None          # free the old graph's pool first
@@ -701,7 +751,7 @@ class Smoother:
             steady = iter_ms[max(self.iter_batch, 1):] or iter_ms
             if steady:
                 mean_ms = sum(steady) / len(steady)
-                rate = self.topo.n_points / (mean_ms / 1e3)
+                rate = self.n_points / (mean_ms / 1e3)
                 log(f"Performance: {mean_ms:.3f} ms/iteration, "
                     f"{rate:,.0f} point-updates/s on {self.device}")
             log(f"ClockTime = {time.time() - t0:.1f} s.")

@@ -80,6 +80,43 @@ def point_hops_to_boundary(topo: MeshTopology, patch_ids,
     return hops
 
 
+def boundary_point_normals_np(points: np.ndarray, topo: MeshTopology):
+    """Host (numpy) boundary point normals -> (normals (N, 3), is_sharp
+    (N,)), for the global set-up of the halo driver, which holds no
+    global topology on the device (the JAX package's
+    ``layers.boundary_point_normals_np``, same arithmetic)."""
+    fp = topo.face_points
+    fm = topo.face_mask
+    fn = np.maximum(topo.face_npoints.astype(np.float64), 1.0)
+    p = points[fp]
+    f_centre = (p * fm[..., None]).sum(axis=1) / fn[:, None]
+    nxt = points[topo.face_points_next]
+    nv = np.cross(nxt - p, f_centre[:, None, :] - p)
+    a = np.linalg.norm(nv, axis=-1, keepdims=True)
+    sum_n = (nv * fm[..., None]).sum(axis=1)
+    sum_a = (a * fm[..., None]).sum(axis=1)
+    areas = np.where(sum_a > 1e-18, 0.5 * sum_n, 0.0)
+    mags = np.linalg.norm(areas, axis=-1)
+    unit = areas / np.maximum(mags, 1e-300)[:, None]
+
+    real_patch = np.array([t not in ("processor", "empty")
+                           for t in topo.patch_types])
+    eligible = np.zeros(topo.n_faces, dtype=bool)
+    bnd = topo.face_patch >= 0
+    eligible[bnd] = real_patch[topo.face_patch[bnd]]
+
+    pf = topo.point_faces
+    sel = topo.point_faces_mask & eligible[pf]
+    normals = -(unit[pf] * sel[..., None]).sum(axis=1)
+    n_faces = sel.sum(axis=1)
+    mag = np.linalg.norm(normals, axis=-1)
+    is_sharp = (n_faces >= 1) & (mag < 0.1)
+    normals[is_sharp] = 0.0
+    nz = (mag > 0) & ~is_sharp
+    normals[nz] /= mag[nz][:, None]
+    return normals, is_sharp
+
+
 @dataclasses.dataclass
 class LayerMaps:
     hops_layer: np.ndarray          # (N,)
@@ -177,7 +214,7 @@ def build_layer_maps(topo: MeshTopology, boundary_normals: np.ndarray,
 # Per iteration (plain PyTorch)
 # ---------------------------------------------------------------------------
 
-def accumulate_point_normals(prev_normals, face_areas, td):
+def accumulate_point_normals(prev_normals, face_areas, td, sync=None):
     """Stateful normal update -> (normals (N, 3), is_sharp (N,)): add the
     inward unit normals of adjacent real-boundary faces to the previous
     (normalized) field, re-classify sharp points, renormalize (reference
@@ -186,7 +223,9 @@ def accumulate_point_normals(prev_normals, face_areas, td):
     propagated normals.
 
     ``face_areas``: the (F, 3) face area vectors of this iteration (K1's
-    output, so there is no second face pass).
+    output, so there is no second face pass).  ``sync``: the halo
+    exchange (``parallel.sync``) or None; the summed face normals and
+    counts of a shared point are then its owner's.
     """
     dtype = prev_normals.dtype
     unit = face_areas / norm3(face_areas).clamp_min(1e-30)[:, None]
@@ -194,6 +233,9 @@ def accumulate_point_normals(prev_normals, face_areas, td):
     sel = td["point_faces_mask"] & td["face_is_real_boundary"][pf]
     add = -(unit[pf] * sel[..., None].to(dtype)).sum(1)
     n_faces = sel.sum(1)
+    if sync is not None:
+        add = sync.sum(add)
+        n_faces = sync.sum(n_faces)
 
     normals = prev_normals + add
     mag = norm3(normals)
@@ -205,11 +247,14 @@ def accumulate_point_normals(prev_normals, face_areas, td):
     return normals, is_sharp
 
 
-def update_neigh_coords(points, neigh_map):
+def update_neigh_coords(points, neigh_map, sync=None):
     """Coordinates of each point's mapped neighbour, ``BIG`` where the
-    map is undefined (reference oBB.C:464-501 on one device)."""
+    map is undefined (reference oBB.C:464-501); with the halo exchange
+    ``sync``, a shared point takes its owner's (whose map target is
+    local)."""
     coords = points[neigh_map.clamp_min(0)]
-    return torch.where((neigh_map >= 0)[:, None], coords, BIG)
+    coords = torch.where((neigh_map >= 0)[:, None], coords, BIG)
+    return coords if sync is None else sync.min_mag_sqr(coords)
 
 
 def blend_with_orthogonal_points(points, new_points, td, hops, normals,

@@ -387,26 +387,33 @@ class FaceAngleBand(NamedTuple):
 
 
 def face_angle_band(cur_min, cur_max, min_angle_rad, max_angle_rad,
-                    u_space=False, guarded=False) -> FaceAngleBand:
+                    u_space=False, guarded=False,
+                    eligible=None) -> FaceAngleBand:
     """The points the face-angle fixed point visits: current min angle
     <= min_angle or current max >= max_angle (the reference skips the
     others, src/smoothMesh.C:1367).  ``u_space``: the values are u
     values, so the thresholds map to u; ``guarded``: the current values
     come from another arithmetic path than the fixed point's (K5/K6),
-    so deteriorations below ``det_eps`` = 1e-5 u are ignored.  No host
-    read: the batched driver counts ``active`` on the device."""
+    so deteriorations below ``det_eps`` = 1e-5 u are ignored.
+    ``eligible``: (N,) bool or None; under the halo decomposition only
+    the points with a complete local stencil (the owned ones) may be
+    active.  No host read: the batched driver counts ``active`` on the
+    device."""
     if u_space:
         min_angle_rad = angle_to_u(min_angle_rad)
         max_angle_rad = angle_to_u(max_angle_rad)
     det_eps = 1e-5 if (u_space and guarded) else 0.0
     active = (cur_min <= min_angle_rad) | (cur_max >= max_angle_rad)
+    if eligible is not None:
+        active = active & eligible
     return FaceAngleBand(active, min_angle_rad, max_angle_rad, det_eps)
 
 
 def restrict_face_angle_deterioration(points, cell_ctrs, proposed, td,
                                       min_angle_rad, max_angle_rad, frozen,
                                       fc_base=None, cur_minmax=None,
-                                      u_space=False, stats=None):
+                                      u_space=False, stats=None,
+                                      eligible=None):
     """Freeze points (and neighbours) whose moves deteriorate face-face
     angles already outside [min_angle, max_angle] -> the freeze mask.
 
@@ -439,7 +446,10 @@ def restrict_face_angle_deterioration(points, cell_ctrs, proposed, td,
     current and substituted values then come from two arithmetic paths,
     ``det_eps`` = 1e-5 u ignores sub-noise "deteriorations" (0 on one
     path).  ``stats``: a dict that receives the active-point count and
-    the number of pair sweeps.
+    the number of pair sweeps.  ``eligible``: (N,) bool or None; under
+    the halo decomposition only the owned points (complete local
+    stencils) may be active, and the freezes they make, of themselves
+    or of any neighbour, are OR-combined across shards by the caller.
 
     Costs one host read when no point is active; otherwise one per
     phase and sweep.
@@ -454,7 +464,7 @@ def restrict_face_angle_deterioration(points, cell_ctrs, proposed, td,
         cur_min, cur_max = cur_minmax
     active, min_angle_rad, max_angle_rad, det_eps = face_angle_band(
         cur_min, cur_max, min_angle_rad, max_angle_rad, u_space,
-        guarded=cur_minmax is not None)
+        guarded=cur_minmax is not None, eligible=eligible)
     act_idx = torch.nonzero(active).squeeze(1)           # host read
     if stats is not None:
         stats.update(active=act_idx.numel(), sweeps=0)

@@ -155,22 +155,40 @@ def _blend(points, centroidal_points, frac, c1, c2):
     return torch.where((frac > 0.0)[:, None], blended, centroidal_points)
 
 
+def get_proposed_max_step_length(points, proposed, sync=None):
+    """The largest proposed jump over all points (reference
+    getProposedMaxStepLength src/smoothMesh.C:657-676), all-reduced
+    over the shards by ``sync``."""
+    m = norm3(proposed - points).max()
+    return m if sync is None else sync.all_max(m)
+
+
 def constrain_max_step_length(points, proposed, max_step_length,
-                              rel_step_frac):
-    """Clamp each point's jump (reference src/smoothMesh.C:684-754,
-    doGlobalScaling=false as at every live call site): steps longer than
+                              rel_step_frac, do_global_scaling=False,
+                              sync=None):
+    """Clamp each point's jump (reference src/smoothMesh.C:684-754).
+
+    The live call sites use doGlobalScaling=false: steps longer than
     ``max_step_length`` are rescaled so the *applied* step equals
     exactly ``max_step_length``; shorter steps are scaled by
     ``rel_step_frac``.  The rescale applies only where the length is
-    strictly greater than ``max_step_length``.
+    strictly greater than ``max_step_length``.  ``do_global_scaling``:
+    one common factor from the largest proposed jump over all points
+    (:707-715), all-reduced by ``sync``.
     """
     step = proposed - points
     length = norm3(step)
-    scale = torch.where(
-        length > max_step_length,
-        max_step_length / (length.clamp_min(VSMALL) * rel_step_frac),
-        1.0,
-    )
+    if do_global_scaling:
+        proposed_max = get_proposed_max_step_length(points, proposed, sync)
+        gscale = (max_step_length / (proposed_max * rel_step_frac)
+                  .clamp_min(VSMALL)).clamp(max=1.0)
+        scale = gscale.expand_as(length)
+    else:
+        scale = torch.where(
+            length > max_step_length,
+            max_step_length / (length.clamp_min(VSMALL) * rel_step_frac),
+            1.0,
+        )
     return points + (rel_step_frac * scale)[:, None] * step
 
 
