@@ -122,8 +122,32 @@ Phases, each fatal on failure:
      every iteration); and DistSync, 2 gloo ranks in 2 processes sharing
      cuda:0 (smoothmesh_torch.parallel.ranks), bit-equal to UnionSync
      with 2 shards after 8 iterations;
-  8. one JSON line of the kernels (with the halo run's launches), one of
-     the halo's figures, then the last line
+  10. (before the record) the disjoint decomposition
+     (smoothmesh_torch.parallel.sharded): the 128^3 bench mesh in 4
+     shards on the card through UnionPointSync (the shards' union, each
+     kernel one launch an iteration over all of them, K3 too, whose
+     shared rows are then recomputed with the exchanges), its set-up
+     split into the shard build (with the four topology compiles), the
+     union and the upload; 8 iterations through the kernels against the
+     same 8 through the plain versions on the union (residuals within
+     2e-3, frozen counts within 10% + 10; K1, K2, K5 bit for bit, K4
+     without a mismatch, K3 on the unshared rows held like a mask, at
+     most 1e-4 * N points beyond the field tolerance); with the freezes
+     off, 8 iterations against the single device from the same points
+     (every point within 1e-4 x the coordinate scale); every holder of
+     a shared point bit-identical after each run; steps(32) batched
+     against one by one as in phase 4 (bit-equal, 2 host reads, K1-K6
+     32 launches); the device time of the shared rows' predictor beside
+     K3's and the whole plain chain's; at 32^3 the boundary configuration
+     in 4 shards through the kernels against the plain versions on the
+     union (K8 launched every iteration) and its quality() (the global
+     report, K7 one launch); DistPointSync, 2 gloo ranks in 2 processes
+     sharing cuda:0, bit-equal to UnionPointSync with 2 shards after 8
+     iterations; and the CLI's -parallel on the 32^3 case (exit 0, the
+     points read back);
+  8. one JSON line of the kernels (with the halo's and the disjoint
+     decomposition's launches), one of the halo's figures, one of the
+     disjoint decomposition's, then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without
@@ -221,8 +245,13 @@ HALO_COUNT_TOL = 1e-4
 HALO_RES_TOL = 1e-3
 HALO_POINT_TOL = 1e-5
 HALO_POINT_MAX = 1e-4
-#: DistSync's ranks (gloo, sharing cuda:0)
+#: DistSync's and DistPointSync's ranks (gloo, sharing cuda:0)
 DIST_WORLD = 2
+#: phase 10: the disjoint decomposition's shards at 128^3 and 32^3, and
+#: the iterations held against the plain versions on the union and, with
+#: the freezes off, against the single device
+SHARDED_SHARDS = 4
+SHARDED_ITERS = 8
 
 
 T_START = time.perf_counter()
@@ -1595,6 +1624,342 @@ def halo_phase(mesh, mesh_int, topo, orders, smi: str) -> dict:
     return out
 
 
+def holders_identical(sm) -> bool:
+    """Phase 10: every holder of a shared point holds its owner's bits."""
+    rows = sm.sync.rows
+    own = torch.as_tensor(sm.union.owner_rows(), device=rows.device)
+    return torch.equal(sm.points[rows], sm.points[own])
+
+
+def k3_unshared_stage(stats: dict, shared_rows, td_k3):
+    """Phase 10: the plain predictor, K3 held beside it on the same
+    inputs, on the rows no other shard holds (where K3 is the path's
+    result), like a mask: the points beyond FIELD_TOL of the scaled
+    error, counted into ``stats``."""
+    from smoothmesh_torch.driver import PLAIN_STAGES
+    from smoothmesh_torch.ops import smoothing as smo
+
+    stats.setdefault("k3_unshared_beyond", 0)
+    stats.setdefault("k3_unshared_scaled_err", 0.0)
+
+    def predictor(points, cell_ctrs, td, *args):
+        want = PLAIN_STAGES.predictor(points, cell_ctrs, td, *args)
+        got = smo.predictor(points, cell_ctrs, td_k3, *args)
+        keep = torch.ones(points.shape[0], dtype=torch.bool,
+                          device=points.device)
+        keep[shared_rows] = False
+        per_pt = torch.maximum((got[0] - want[0]).abs().amax(1),
+                               (got[1] - want[1]).abs())[keep]
+        per_pt = per_pt / float(want[0].abs().max())
+        stats["k3_unshared_beyond"] = max(stats["k3_unshared_beyond"],
+                                          int((per_pt > FIELD_TOL).sum()))
+        stats["k3_unshared_scaled_err"] = max(
+            stats["k3_unshared_scaled_err"], float(per_pt.max()))
+        return want
+
+    return predictor
+
+
+def sharded_phase(mesh, mesh_int, topo, orders, smi: str,
+                  single_ms: dict) -> dict:
+    """Phase 10: the disjoint decomposition (parallel.sharded) -> its
+    launches at 128^3 (K1-K6 in the batched steps) and in the 32^3
+    boundary run (K8, and K7 in its quality report), and its figures;
+    ``single_ms``: phase 3's kernel times on the single device, beside
+    which K1-K6 are timed on the union (the mesh's own point order)."""
+    from smoothmesh_torch import cli, kernels
+    from smoothmesh_torch.ops import constraints as con
+    from smoothmesh_torch.driver import PLAIN_STAGES, Smoother, iteration_body
+    from smoothmesh_torch.io.case import FoamCase
+    from smoothmesh_torch.io.polymesh import write_polymesh
+    from smoothmesh_torch.ops import smoothing as smo
+    from smoothmesh_torch import geometry as geo
+    from smoothmesh_torch.parallel.ranks import Job, run_ranks
+    from smoothmesh_torch.parallel.sharded import ShardedSmoother
+    from smoothmesh_torch.params import SmoothingParams
+    from smoothmesh_torch.testcases import bench_dome_geometry
+
+    out = {}
+    N = mesh.n_points
+    params = SmoothingParams(centroidal_iters=MAIN_ITERS, rel_tol=0.0)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ss = ShardedSmoother(mesh, params, n_shards=SHARDED_SHARDS,
+                         device="cuda")
+    t_setup = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated() / 1e9
+    U, P = ss.topo.n_points, int(ss.sync.rows.numel())
+    n_proc = sum(t.n_faces - t.n_internal_faces for t in ss.shards.topos) \
+        - (mesh.n_faces - mesh.n_internal_faces)
+    print(f"sharded at {MAIN_SIDE}^3, {SHARDED_SHARDS} shards "
+          f"(UnionPointSync): union {U} points = {U / N:.4f} N, "
+          f"{ss.topo.n_cells} cells, {ss.topo.n_faces} faces "
+          f"({n_proc} processor faces), {ss.topo.n_edges} edges; "
+          f"{ss.sync.n_slots} shared points in {P} (point, holder) rows; "
+          f"set-up {t_setup:.2f} s: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in ss.setup_times.items())
+          + f" (the compiles are inside the shard build); peak device "
+          f"memory over the set-up {setup_peak:.2f} GB", flush=True)
+    out.update(union_over_n=U / N, setup_s=t_setup,
+               setup_parts=dict(ss.setup_times),
+               shared_points=ss.sync.n_slots, pair_rows=P,
+               processor_faces=n_proc, setup_peak_gb=setup_peak)
+    start = (ss.points.clone(), ss.normals.clone())
+
+    wall_clock("phase 10: kernels against the plain versions on the union")
+    got = ss.steps(SHARDED_ITERS)
+    require(holders_identical(ss), f"sharded {MAIN_SIDE}^3: the holders "
+            "of a shared point differ after the kernels' run")
+    td_p = with_plain_tables(ss.td, ss.topo)
+    exact = {}
+    stages = exact_stages(exact)._replace(predictor=k3_unshared_stage(
+        exact, ss.sync.rows, ss.td))
+    pts_p = start[0].clone()
+    for i, r in enumerate(got):
+        pts_p, _, res_p, nf_p, _, _ = iteration_body(
+            pts_p, td_p, ss.params, ss._scale, stages, sync=ss.sync)
+        res_p, nf_p = float(res_p), int(nf_p)
+        where = f"sharded {MAIN_SIDE}^3 plain, iteration {i + 1}"
+        require(abs(r.residual - res_p) < 2e-3, f"{where}: residual "
+                f"{r.residual} (kernels) vs {res_p} (plain)")
+        require(abs(r.n_frozen - nf_p) <= 0.1 * nf_p + 10, f"{where}: "
+                f"nFrozen {r.n_frozen} (kernels) vs {nf_p} (plain)")
+    require(exact["calls"] == SHARDED_ITERS and exact["k1_bits"] == 0
+            and exact["k2_bits"] == 0 and exact["k4_mismatches"] == 0
+            and exact["k5_bits"] == 0
+            and exact["k3_unshared_beyond"] <= MASK_TOL * N,
+            f"sharded {MAIN_SIDE}^3: K1, K2, K4, K5 and K3 (unshared rows) "
+            f"against their plain versions on each iteration's inputs: "
+            f"{exact}")
+    print(f"sharded {MAIN_SIDE}^3 x {SHARDED_ITERS} through the kernels "
+          f"and through the plain versions on the union: agree (last "
+          f"residual {got[-1].residual:.6g} vs {res_p:.6g}, nFrozen "
+          f"{got[-1].n_frozen} vs {nf_p}); K1, K2, K5 bit-equal, K4 "
+          f"without a mismatch and K3 on the unshared rows within the mask "
+          f"criterion on every iteration's inputs: {exact}; the holders "
+          f"of every shared point bit-identical", flush=True)
+    out["plain_exact"] = exact
+    out["frozen"] = [r.n_frozen for r in got]
+    del td_p, pts_p
+
+    wall_clock("phase 10: freeze-free against the single device")
+    ff = dataclasses.replace(ss.params, centroidal_iters=SHARDED_ITERS,
+                             min_edge_length=1e-12 * ss.params.min_edge_length,
+                             edge_angle_constraint=False,
+                             face_angle_constraint=False)
+    single = Smoother(mesh_int, ff, topo=topo, device="cuda")
+    want = single.steps(SHARDED_ITERS)
+    want_pts = single.denormalize()[orders.point_new]
+    del single
+    torch.cuda.empty_cache()
+    main_params = ss.params
+    ss.params = ff
+    ss.points, ss.normals = start[0].clone(), start[1].clone()
+    ss._iteration = 0
+    got_ff = ss.steps(SHARDED_ITERS)
+    scale = float(np.abs(want_pts).max())
+    dist = np.linalg.norm(ss.denormalize() - want_pts, axis=1)
+    moved = float(np.abs(want_pts - mesh.points).max())
+    d_res = max(abs(a.residual - b.residual) / max(abs(b.residual), 1e-30)
+                for a, b in zip(got_ff, want))
+    require(float(dist.max()) <= HALO_POINT_MAX * scale and moved > 0
+            and d_res <= HALO_RES_TOL and holders_identical(ss),
+            f"sharded {MAIN_SIDE}^3 freeze-free against the single device: "
+            f"farthest point {float(dist.max()):.3g} (scale {scale:.4g}), "
+            f"residuals {d_res:.3g} relative, holders identical "
+            f"{holders_identical(ss)}")
+    print(f"sharded {MAIN_SIDE}^3 x {SHARDED_ITERS}, freezes off, against "
+          f"the single device from the same points: every point within "
+          f"{float(dist.max()):.3g} ({float(dist.max()) / scale:.3g} of the "
+          f"coordinate scale; the largest move {moved:.3g}), residuals "
+          f"within {d_res:.3g} relative; the holders of every shared point "
+          f"bit-identical", flush=True)
+    out["freeze_free"] = dict(max_point_diff=float(dist.max()),
+                              scale=scale, residual_rel=d_res)
+    ss.params = main_params
+
+    wall_clock("phase 10: batched against one by one")
+    ss.points, ss.normals = start[0].clone(), start[1].clone()
+    ss._iteration = 0
+    run = batched_against_one_by_one(
+        ss, MAIN_ITERS, f"sharded {MAIN_SIDE}^3, {SHARDED_SHARDS} shards",
+        smi, {k: (0 if k in (kernels.RAYCAST, kernels.TABLE_GATHER)
+                  else MAIN_ITERS) for k in kernels.ALL})
+    require(holders_identical(ss), f"sharded {MAIN_SIDE}^3: the holders "
+            "differ after steps(32)")
+    out.update(ms_batched=run["ms_batched"], ms_one=run["ms_one"],
+               peak_gb=run["peak_gb"], capture_s=run["capture_s"])
+    launches = dict(run["launches"])
+
+    wall_clock("phase 10: the shared rows' predictor")
+    pts, td = ss.points, ss.td
+    fg = geo.face_centres_areas(pts, td["face_points"], td["face_mask"],
+                                td["face_npoints"])
+    cc, _ = geo.cell_centres_vols(fg, td)
+    max_step = ss.params.max_step_length * ss._scale
+    pargs = (pts, cc, td, max_step, ss.params.rel_step_frac, False)
+    prop, _ = smo.predictor(*pargs)
+    rows_ms = device_ms(lambda: smo.predict_shared_rows(prop, *pargs,
+                                                        ss.sync), 20)
+    k3_ms = device_ms(lambda: smo.predictor(*pargs), 20)
+    td_p = with_plain_tables(td, ss.topo)
+    full_ms = device_ms(lambda: smo.predictor_plain(
+        pts, cc, td_p, max_step, ss.params.rel_step_frac, False,
+        sync=ss.sync), 5)
+    out.update(shared_rows_predictor_ms=rows_ms, k3_union_ms=k3_ms,
+               plain_chain_with_exchanges_ms=full_ms)
+    p = ss.params
+    frozen = torch.zeros(U, dtype=torch.bool, device=pts.device)
+    eu = con.edge_face_angles(pts, fg.means, cc, td)
+    union_ms = {
+        kernels.FACE_GEOMETRY: device_ms(lambda: geo.face_centres_areas(
+            pts, td["face_points"], td["face_mask"], td["face_npoints"]),
+            20),
+        kernels.CELL_CENTRES: device_ms(
+            lambda: geo.cell_centres_vols(fg, td), 20),
+        kernels.PREDICTOR: k3_ms,
+        kernels.FREEZE: device_ms(lambda: con.freeze_constraints(
+            pts, prop, td, p.min_edge_length * ss._scale,
+            p.total_min_freeze, p.min_angle_rad, p.edge_angle_constraint,
+            frozen), 20),
+        kernels.FACE_ANGLES: device_ms(
+            lambda: con.edge_face_angles(pts, fg.means, cc, td), 20),
+        kernels.POINT_FACE_ANGLES: device_ms(
+            lambda: con.point_face_angles(eu, td), 20)}
+    out["union_kernel_ms"] = {k.name: v for k, v in union_ms.items()}
+    print(f"sharded {MAIN_SIDE}^3: K1-K6 on the union (U/N {U / N:.4f}, the "
+          "mesh's own point order) against phase 3's single device: "
+          + ", ".join(f"{k.name.split()[0]} {v:.4f} ms ({v / single_ms[k]:.3f}"
+                      "x)" for k, v in union_ms.items())
+          + f"; sums {sum(union_ms.values()):.4f} against "
+          f"{sum(single_ms[k] for k in union_ms):.4f} ms", flush=True)
+    del eu, frozen
+    print(f"sharded {MAIN_SIDE}^3: the shared rows' predictor ({P} rows) "
+          f"{rows_ms:.4f} ms of device time launched one by one, K3 over "
+          f"the union {k3_ms:.4f} ms, the whole plain chain with the "
+          f"exchanges (the fallback) {full_ms:.4f} ms; the batched "
+          f"iteration {run['ms_batched']:.4f} ms, on {smi}", flush=True)
+    del ss, run, start, fg, cc, prop, td_p, pts, td
+    torch.cuda.empty_cache()
+
+    wall_clock("phase 10: 32^3 boundary")
+    small = bench_mesh(SMALL_SIDE)
+    bparams = dataclasses.replace(boundary_params(SMALL_ITERS),
+                                  max_step_length=SMALL_BND_MAX_STEP)
+    geom = bench_dome_geometry()[1:]
+    sb = ShardedSmoother(small, bparams, n_shards=SHARDED_SHARDS,
+                         device="cuda")
+    sb.enable_boundary_smoothing(*geom)
+    require(sb.layer is not None and sb.bnd is not None,
+            "sharded 32^3: layers or boundary smoothing off")
+    bstart = (sb.points.clone(), sb.normals.clone())
+    sb.prepare_batch()
+    kernels.reset_launches()
+    got = sb.steps(SMALL_ITERS)
+    launches_bnd = {k: k.launches for k in kernels.ALL}
+    require(launches_bnd[kernels.RAYCAST] == SMALL_ITERS,
+            f"sharded {SMALL_SIDE}^3 boundary: K8 launched "
+            f"{launches_bnd[kernels.RAYCAST]} times")
+    pts_p, nrm_p = bstart
+    td_bp = with_plain_tables(sb.td, sb.topo)
+    for a in got:
+        pts_p, nrm_p, res_p, nf_p, miss_p, _ = iteration_body(
+            pts_p, td_bp, sb.params, sb._scale, PLAIN_STAGES,
+            normals=nrm_p, smoothing_surface=sb.smoothing_surface,
+            layer=sb.layer, bnd=sb.bnd, sync=sb.sync)
+        require(abs(a.residual - float(res_p)) < 2e-3 and a.residual < 1.0
+                and abs(a.n_frozen - int(nf_p)) <= 0.1 * int(nf_p) + 10
+                and a.n_ray_miss == int(miss_p),
+                f"sharded {SMALL_SIDE}^3 boundary, iteration {a.iteration}: "
+                f"{a} vs plain {float(res_p)}, {int(nf_p)}, {int(miss_p)}")
+    apart = float((sb.points - pts_p).abs().max())
+    require(apart < BND_POINT_TOL and holders_identical(sb),
+            f"sharded {SMALL_SIDE}^3 boundary: points {apart} apart from "
+            "the plain versions' (normalized units)")
+    kernels.reset_launches()
+    rep = sb.quality()
+    launches_q = kernels.TABLE_GATHER.launches
+    require(launches_q == 1 and rep["n_negative_volumes"] == 0,
+            f"sharded {SMALL_SIDE}^3 quality(): K7 launched {launches_q}, "
+            f"{rep['n_negative_volumes']} negative volumes")
+    launches[kernels.RAYCAST] = launches_bnd[kernels.RAYCAST]
+    launches[kernels.TABLE_GATHER] = launches_q
+    print(f"sharded {SMALL_SIDE}^3 x {SMALL_ITERS}, boundary configuration "
+          f"(max step {SMALL_BND_MAX_STEP}), {SHARDED_SHARDS} shards, "
+          f"through the kernels and through the plain versions on the "
+          f"union: agree (last residual {got[-1].residual:.6g}, nFrozen "
+          f"{got[-1].n_frozen}, ray misses {got[-1].n_ray_miss}; points "
+          f"within {apart:.3g} normalized units); launches "
+          f"{ {k.name: v for k, v in launches_bnd.items() if v} }; "
+          f"quality(): min face angle {rep['min_face_angle_deg']:.4f} deg, "
+          f"no negative volume, K7 one launch", flush=True)
+    del sb, pts_p, nrm_p, td_bp
+
+    wall_clock("phase 10: DistPointSync")
+    dparams = SmoothingParams(centroidal_iters=SMALL_ITERS, rel_tol=0.0)
+    su = ShardedSmoother(small, dparams, n_shards=DIST_WORLD, device="cuda")
+    want = [dataclasses.astuple(r) for r in su.steps(SMALL_ITERS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = run_ranks(Job(small, dparams, SMALL_ITERS,
+                              decomposition="disjoint"), DIST_WORLD, tmp,
+                          timeout_s=300)
+        t_dist = time.perf_counter() - t0
+    base = su.union.base[:, 0]
+    for rank, r in enumerate(ranks):
+        require([x[:3] + x[4:] for x in r["results"]]
+                == [x[:3] + x[4:] for x in want],
+                f"DistPointSync rank {rank}: results differ from the "
+                "union's")
+        require(torch.equal(r["points"],
+                            su.points[base[rank]:base[rank + 1]].cpu()),
+                f"DistPointSync rank {rank}: points not bit-equal")
+        require(np.array_equal(r["denormalized"], su.denormalize()),
+                f"DistPointSync rank {rank}: the global points differ")
+    print(f"sharded {SMALL_SIDE}^3 x {SMALL_ITERS}, DistPointSync "
+          f"({DIST_WORLD} gloo ranks in {DIST_WORLD} processes on cuda:0) "
+          f"against UnionPointSync ({DIST_WORLD} shards): points, "
+          f"residuals and counts bit-equal (last residual {want[-1][1]:.6g},"
+          f" nFrozen {want[-1][2]}); the ranks took {t_dist:.1f} s with "
+          f"their start-up", flush=True)
+    del su
+
+    wall_clock("phase 10: the CLI's -parallel")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as root:
+        os.makedirs(os.path.join(root, "system"))
+        with open(os.path.join(root, "system", "controlDict"), "w") as f:
+            f.write("deltaT 1;\n")
+        write_polymesh(os.path.join(root, "constant", "polyMesh"), small,
+                       binary=True)
+        args = ["-case", root, "-parallel", "-centroidalIters",
+                str(SMALL_ITERS), "-writeFormat", "binary", "-checkMesh"]
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main(args)
+        t_cli = time.perf_counter() - t0
+        text = text.getvalue()
+        require(rc == 0, f"the CLI's -parallel exited with {rc}")
+        n_dev = torch.cuda.device_count()
+        require(f"Running sharded over {n_dev} shards" in text
+                and "Mesh OK." in text,
+                "the CLI's -parallel: " + text[-400:])
+        back = FoamCase(root).read_mesh(float(SMALL_ITERS)).points
+        require(back.shape == (small.n_points, 3)
+                and bool(np.isfinite(back).all())
+                and float(np.abs(back - small.points).max()) > 0,
+                f"the -parallel run's points read back as {back.shape}")
+    print(f"CLI -parallel on the {SMALL_SIDE}^3 case (binary, "
+          f"{SMALL_ITERS} iterations, -checkMesh): exit 0 in {t_cli:.2f} s, "
+          f"{n_dev} shard(s) on the first card, Mesh OK, the "
+          f"{small.n_points} points read back", flush=True)
+    out["cli_parallel_s"] = t_cli
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2081,6 +2446,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     halo = halo_phase(mesh, mesh_int, topo, orders, smi)
 
+    wall_clock("phase 10")
+    # -- 10. the disjoint decomposition -------------------------------------
+    torch.cuda.empty_cache()
+    sharded = sharded_phase(mesh, mesh_int, topo, orders, smi,
+                            {k: r["ms"] for k, r in results.items()})
+
     wall_clock("phase 8")
     # -- 8. the record ----------------------------------------------------
     main_path = {kernels.RAYCAST: bnd["launches"],
@@ -2091,6 +2462,7 @@ def main() -> int:
         results[k]["launches_boundary_path"] = bnd["launches"][k]
         results[k]["launches_cli"] = cli["launches"][k]
         results[k]["launches_halo"] = halo["launches"][k]
+        results[k]["launches_sharded"] = sharded["launches"][k]
     for k in (kernels.FACE_GEOMETRY, kernels.CELL_CENTRES, kernels.FREEZE,
               kernels.FACE_ANGLES):
         results[k]["small_runs_exact"] = small_exact
@@ -2099,6 +2471,8 @@ def main() -> int:
         quality["plain_ms"]
     print(json.dumps({"halo": {k: v for k, v in halo.items()
                                if k != "launches"}}))
+    print(json.dumps({"sharded": {k: v for k, v in sharded.items()
+                                  if k != "launches"}}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -30,11 +30,13 @@ Layout (each module mirrors its ``smoothmesh_tpu`` counterpart):
                   and capturing them into CUDA graphs
   - ``driver``    the iteration loop (batched: CUDA-graph replays with
                   one host read a batch), convergence and writes
-  - ``parallel``  the halo domain decomposition: the shards (host), all
-                  of them on one device as one union topology, or one
-                  a rank over ``torch.distributed``
+  - ``parallel``  the halo and the disjoint domain decompositions: the
+                  shards (host), all of them on one device as one union
+                  topology, or one a rank over ``torch.distributed``
   - ``convert``   building the driver's state from the JAX package's
   - ``testcases`` the reference's eight testcases as generators
+  - ``models``    the registry of the smoothing engines
+  - ``utils``     debug writers (edges as STL)
   - ``cli``       the command-line interface
 """
 

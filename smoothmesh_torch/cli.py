@@ -10,7 +10,15 @@ options (``-centroidalIters 50``) as well as double-dash GNU style.
 One option more: ``-device`` (default ``cuda``) names the torch device,
 as choosing a JAX platform does for the JAX package.  ``-device cpu``
 runs the kernels' plain PyTorch versions; without it, a machine with no
-CUDA device raises.  ``-parallel`` has no port yet and is refused.
+CUDA device raises.
+
+``-parallel`` runs the disjoint domain decomposition
+(``parallel.sharded.ShardedSmoother``), as the JAX CLI does, over all
+the shards available (:func:`parallel_shards`): one a rank where the
+process is a ``torch.distributed`` rank (``torchrun --nproc-per-node
+N``: gloo, the ranks share the current card; rank 0 prints and
+writes), else one a CUDA device on ``cuda``, all in this process on
+the first card, else one on ``cpu``.
 
 Patch list options accept the reference syntax: a bare word
 (``-layerPatches walls``) or a parenthesized list with regexes
@@ -23,14 +31,18 @@ Run as ``python -m smoothmesh_torch.cli -case DIR ...`` or
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
 import sys
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from smoothmesh_torch.device import resolve_device
 from smoothmesh_torch.io.case import FoamCase
+from smoothmesh_torch.mesh.topology import boundary_point_mask
 from smoothmesh_torch.params import SmoothingParams
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -60,7 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
       help="Specify the time (default is latest)")
     a("-overwrite", "--overwrite", action="store_true")
     a("-parallel", "--parallel", action="store_true",
-      help="not ported yet: refused")
+      help="run the disjoint domain decomposition over all available "
+      "shards: the torch.distributed ranks (gloo), else the CUDA devices "
+      "(in this process, on the first card), else one")
     a("-centroidalIters", "--centroidalIters", type=int, default=1000)
     a("-maxStepLength", "--maxStepLength", type=float, default=None)
     a("-relStepFrac", "--relStepFrac", type=float, default=0.5)
@@ -106,20 +120,59 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def parallel_shards(device: torch.device) -> Tuple[int, bool]:
+    """``-parallel``'s shard count and whether this process is one
+    ``torch.distributed`` rank of them: the world size where the
+    environment names this process's ``RANK`` and the ``WORLD_SIZE`` (as
+    ``torchrun`` does; the gloo process group is joined here at
+    ``MASTER_ADDR``:``MASTER_PORT`` unless it is already), else
+    ``torch.cuda.device_count()`` on ``cuda``, else 1."""
+    import torch.distributed as dist
+
+    env = os.environ
+    if dist.is_initialized() or ("RANK" in env and "WORLD_SIZE" in env):
+        if not dist.is_initialized():
+            addr = env.get("MASTER_ADDR", "localhost")
+            dist.init_process_group(
+                "gloo", init_method=f"tcp://{addr}:{env['MASTER_PORT']}",
+                rank=int(env["RANK"]), world_size=int(env["WORLD_SIZE"]))
+        return dist.get_world_size(), True
+    if device.type == "cuda":
+        return torch.cuda.device_count(), False
+    return 1, False
+
+
 def main(argv: Sequence[str] = None) -> int:
     args = build_parser().parse_args(argv)
 
-    if args.parallel:
-        print("FATAL: -parallel (the multi-device domain decomposition) "
-              "is not ported to smoothmesh_torch yet; run without it "
-              "on one device", file=sys.stderr)
-        return 1
     if args.dtype is not None and args.dtype not in DTYPES:
         print(f"FATAL: -dtype {args.dtype}: expected one of "
               f"{', '.join(DTYPES)}", file=sys.stderr)
         return 1
     device = resolve_device(args.device)
+    if not args.parallel:
+        return _smooth(args, device, None, False)
+    import torch.distributed as dist
 
+    joined = not dist.is_initialized()
+    n_shards, distributed = parallel_shards(device)
+    joined = joined and distributed
+    try:
+        if not distributed or dist.get_rank() == 0:
+            return _smooth(args, device, n_shards, distributed)
+        # another rank: the same run, collectives included, printing and
+        # writing nothing
+        with contextlib.redirect_stdout(io.StringIO()):
+            return _smooth(args, device, n_shards, distributed)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _smooth(args, device: torch.device, n_shards, distributed: bool) -> int:
+    """The run of :func:`main` from the parsed options; ``n_shards``:
+    None on one device, else -parallel's shard count (over the ranks
+    with ``distributed``, where only rank 0 writes)."""
     case = FoamCase(args.case)
     delta_t = case.delta_t()
     if delta_t < 1e-30:
@@ -166,10 +219,24 @@ def main(argv: Sequence[str] = None) -> int:
 
     dtype = DTYPES[args.dtype] if args.dtype else None
     try:
-        smoother = Smoother(mesh, params, dtype=dtype, device=device)
+        if n_shards is None:
+            smoother = Smoother(mesh, params, dtype=dtype, device=device)
+            to_ext = smoother.to_external_point_field
+        else:
+            from smoothmesh_torch.parallel.sharded import ShardedSmoother
+
+            how = ("torch.distributed ranks, gloo" if distributed
+                   else f"one process on {device}")
+            print(f"Running sharded over {n_shards} shards ({how})")
+            smoother = ShardedSmoother(mesh, params, n_shards=n_shards,
+                                       dtype=dtype, device=device,
+                                       distributed=distributed)
+            # its boundary classification is in the mesh's point order
+            to_ext = np.asarray
     except TypeError as e:      # a dtype the device's kernels do not take
         print(f"FATAL: {e}", file=sys.stderr)
         return 1
+    writes = not distributed or torch.distributed.get_rank() == 0
     p = smoother.params
 
     layer_ids = smoother.topo.patch_ids_matching(p.layer_patches)
@@ -264,8 +331,8 @@ def main(argv: Sequence[str] = None) -> int:
         print("constant/geometry/initEdges.obj")
     print()
 
-    n_internal = int(smoother.topo.is_internal_point.sum())
-    n_total = smoother.topo.n_points
+    n_total = mesh.n_points
+    n_internal = n_total - int(boundary_point_mask(mesh).sum())
     print(f"Mesh includes a total of {n_total} points:")
     print(f"  - {n_internal} internal (non-boundary) points")
     print(f"  - {n_total - n_internal} boundary points")
@@ -275,13 +342,14 @@ def main(argv: Sequence[str] = None) -> int:
     print()
 
     def on_write(iteration: int, pts: np.ndarray) -> None:
+        if not writes:
+            return
         t = t0 + iteration * delta_t
         out = case.write_mesh(mesh, pts, t, overwrite=args.overwrite,
                               binary=args.writeFormat == "binary")
         if boundary_setup is not None:
             # AUTO_WRITE of classification checkpoints (reference
             # src/smoothMesh.C:2039-2077)
-            to_ext = smoother.to_external_point_field
             case.write_label_io_list(
                 "isCornerPoint", t,
                 to_ext(boundary_setup.is_corner).astype(np.int64))

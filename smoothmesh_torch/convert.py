@@ -1,9 +1,10 @@
 """Carry a smoother's state across from the JAX package.
 
 :func:`state_from_jax` builds this package's :class:`Smoother` (and
-:func:`halo_state_from_jax` its ``HaloSmoother``) from
-plain numpy and Python values read off a ``smoothmesh_tpu`` smoother,
-so both can run on from one identical state.  Nothing here imports the
+:func:`halo_state_from_jax` and :func:`sharded_state_from_jax` its
+``HaloSmoother`` and ``ShardedSmoother``) from plain numpy and Python
+values read off a ``smoothmesh_tpu`` smoother, so both can run on from
+one identical state.  Nothing here imports the
 JAX package: the caller reads its values.
 """
 
@@ -100,13 +101,45 @@ def halo_state_from_jax(mesh, n_shards: int, points, params: Mapping,
         tolerance (``_bnd_scalars["distance_tolerance"]``), or None
         where boundary smoothing is off.
     """
-    from smoothmesh_torch.device import resolve_device
     from smoothmesh_torch.parallel.halo import HaloSmoother
+
+    return _union_state_from_jax(
+        HaloSmoother, mesh, n_shards, points, params, center, scale,
+        device, dtype, normals, smoothing_surface, layer, bnd, bnd_rep,
+        distance_tolerance)
+
+
+def sharded_state_from_jax(mesh, n_shards: int, points, params: Mapping,
+                           center, scale: float, device=None, dtype=None,
+                           normals=None, smoothing_surface=None,
+                           layer: Optional[Mapping] = None,
+                           bnd: Optional[Mapping] = None,
+                           bnd_rep: Optional[Mapping] = None,
+                           distance_tolerance: Optional[float] = None):
+    """A :class:`~smoothmesh_torch.parallel.sharded.ShardedSmoother` on
+    ``device`` from a JAX ``ShardedSmoother``'s state, to continue its
+    run: the arguments of :func:`halo_state_from_jax`, read off the JAX
+    class (its ``points``, ``normals`` and ``smoothing_surface`` are
+    (D, Npad, ...) blocks; ``layer`` its ``layer`` dict; ``bnd`` and
+    ``bnd_rep`` its ``bnd`` dict's per-shard blocks and replicated
+    target geometry, ``distance_tolerance`` its ``bnd``'s)."""
+    from smoothmesh_torch.parallel.sharded import ShardedSmoother
+
+    return _union_state_from_jax(
+        ShardedSmoother, mesh, n_shards, points, params, center, scale,
+        device, dtype, normals, smoothing_surface, layer, bnd, bnd_rep,
+        distance_tolerance)
+
+
+def _union_state_from_jax(cls, mesh, n_shards, points, params, center,
+                          scale, device, dtype, normals, smoothing_surface,
+                          layer, bnd, bnd_rep, distance_tolerance):
+    from smoothmesh_torch.device import resolve_device
 
     pfields = {f.name for f in dataclasses.fields(SmoothingParams)}
     resolved = SmoothingParams(**{k: v for k, v in params.items()
                                   if k in pfields})
-    sm = HaloSmoother.__new__(HaloSmoother)
+    sm = cls.__new__(cls)
     sm._build(mesh, n_shards, distributed=False)
     un = sm.union
     sm._start(un.rows(np.asarray(points, dtype=np.float64)), resolved,

@@ -182,17 +182,30 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
     reverts (the points pass through bit for bit).  With
     ``fixed_point=False`` no step of it reads the host.
 
-    ``sync`` and ``owned``: the halo decomposition's exchange
+    ``sync`` and ``owned``: a domain decomposition's exchange
     (:mod:`smoothmesh_torch.parallel.sync`) and (N,) owner mask, or
-    None for one shard.  Owned points have complete local stencils, so
-    the iteration is the single-device one plus, at the places of the
-    JAX driver's tile branch (``smoothmesh_tpu/driver.py:137-263``): the
-    predictor's proposal, the normals' sums and the neighbour
-    coordinates taken from the owner (consensus); the ray misses, the
-    frozen and the face-angle band counted on owned points; the
-    stage-S freezes masked to owned points and OR-combined; the
-    face-angle fixed point run from owned points only, its freezes
-    OR-combined; the residual and the counts all-reduced.
+    None for one shard.  The halo gives both.  Owned points have
+    complete local stencils, so the iteration is the single-device one
+    plus, at the places of the JAX driver's tile branch
+    (``smoothmesh_tpu/driver.py:137-263``): the predictor's proposal,
+    the normals' sums and the neighbour coordinates taken from the
+    owner (consensus); the ray misses, the frozen and the face-angle
+    band counted on owned points; the stage-S freezes masked to owned
+    points and OR-combined; the face-angle fixed point run from owned
+    points only, its freezes OR-combined; the residual and the counts
+    all-reduced.
+
+    The disjoint decomposition gives ``sync`` alone (``owned`` None),
+    as the JAX driver's XLA branch takes its ``PointSync``
+    (``:150-263``): the shared points' partial sums (centroidal, the
+    normals', the projections') summed over their holders, their
+    closest points merged (:func:`smoothing.predict_shared_rows`) and
+    their proposal taken from the owner; the neighbour coordinates by
+    the min-magnitude combine; every shard's own freeze decisions and
+    face-angle fixed point on all its points, OR-combined (the
+    reference's rank-local constraints); the residual all-reduced and
+    the counts summed over the shards, so a shared point counts once
+    a holder.
     """
     p = params
     min_edge = p.min_edge_length * scale
@@ -210,10 +223,16 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
     cell_ctrs, _ = stages.cell_centres_vols(fg, td)
     prop, _ = stages.predictor(points, cell_ctrs, td, max_step,
                                p.rel_step_frac, bnd is not None)
-    if sync is not None:
-        # owned proposals are exact; replicas adopt them before any
-        # consumer reads a neighbour's proposal
+    if sync is not None and owned is not None:
+        # the halo: owned proposals are exact; replicas adopt them
+        # before any consumer reads a neighbour's proposal
         prop = sync.consensus(prop)
+    elif sync is not None:
+        # disjoint: the proposal is exact off the shared points; theirs
+        # combine the holders' partial sums and closest points
+        prop = smoothing.predict_shared_rows(
+            prop, points, cell_ctrs, td, max_step, p.rel_step_frac,
+            bnd is not None, sync)
 
     if layer is not None:
         outer = lay.update_neigh_coords(points, layer["outer_map"], sync)
@@ -242,8 +261,9 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
     frozen = stages.freeze_constraints(
         points, prop, td, min_edge, p.total_min_freeze, p.min_angle_rad,
         p.edge_angle_constraint, frozen)
-    if sync is not None:
-        # stage-S decisions hold only where the stencil is complete
+    if owned is not None:
+        # the halo: stage-S decisions hold only where the stencil is
+        # complete
         frozen = sync.or_(frozen & owned)
     n_active = None
     if p.face_angle_constraint:
@@ -279,9 +299,8 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
     new_points = torch.where(revert[:, None], points, prop)
     counted = revert & td["point_valid"]
     n_frozen = (counted if owned is None else counted & owned).sum()
-    res = smoothing.calculate_residual(points, new_points, max_step)
+    res = smoothing.calculate_residual(points, new_points, max_step, sync)
     if sync is not None:
-        res = sync.all_max(res)
         n_frozen = sync.all_sum(n_frozen)
     return Iteration(new_points, normals, res, n_frozen, n_ray_miss,
                      n_active)
@@ -367,7 +386,39 @@ class _Batch:
         return self.record[:n].tolist()            # host sync
 
 
-class Smoother:
+class _Delegating(type):
+    """``Smoother(..., n_devices=N)`` with N > 1 builds a domain
+    decomposition's smoother over N shards instead, as the JAX package's
+    ``Smoother`` delegates (``smoothmesh_tpu/driver.py:405-427``)."""
+
+    def __call__(cls, *args, **kw):
+        if cls is Smoother and kw.get("n_devices") not in (None, 1):
+            return _decomposed(*args, **kw)
+        return super().__call__(*args, **kw)
+
+
+def _decomposed(mesh, params, dtype=None, topo=None, device=None,
+                normalize=True, n_devices=None, use_tile_engine=None):
+    """The smoother of ``Smoother(..., n_devices=N)`` for N > 1: the halo
+    decomposition (``parallel.halo.HaloSmoother``) where the JAX package
+    takes its tile engine, on the kernels' device (``cuda``) in
+    float32, the disjoint one (``parallel.sharded.ShardedSmoother``)
+    everywhere else; ``use_tile_engine`` True or False picks the halo or
+    the disjoint one.  ``topo`` is not used: each shard compiles its
+    own."""
+    device = resolve_device(device)
+    halo = use_tile_engine
+    if halo is None:
+        halo = device.type == "cuda" and dtype in (None, torch.float32)
+    if halo:
+        from smoothmesh_torch.parallel.halo import HaloSmoother as cls
+    else:
+        from smoothmesh_torch.parallel.sharded import ShardedSmoother as cls
+    return cls(mesh, params, n_shards=n_devices, dtype=dtype,
+               normalize=normalize, device=device)
+
+
+class Smoother(metaclass=_Delegating):
     """Single-device smoothing engine for one mesh.
 
     Parameters
@@ -387,6 +438,12 @@ class Smoother:
     normalize: centre the points and scale them so that the minimum edge
         length is 1 (float32 stays accurate at any absolute scale);
         False keeps external coordinates.
+    n_devices: None or 1 for this smoother; N > 1 returns a domain
+        decomposition's smoother over N shards on ``device`` instead
+        (the halo on ``cuda`` in float32, else the disjoint one;
+        ``use_tile_engine`` True or False picks the halo or the
+        disjoint one, as the JAX package's argument of that name picks
+        its tile engine's halo), with the same surface.
 
     ``iter_batch`` (from ``SMOOTHMESH_ITER_BATCH``, default 16, as the
     JAX package): the iterations :meth:`steps` runs a dispatch, with one
@@ -398,7 +455,9 @@ class Smoother:
 
     def __init__(self, mesh: PolyMesh, params: SmoothingParams,
                  dtype=None, topo: Optional[MeshTopology] = None,
-                 device=None, normalize: bool = True):
+                 device=None, normalize: bool = True,
+                 n_devices: Optional[int] = None,
+                 use_tile_engine: Optional[bool] = None):
         device = resolve_device(device)
         orders = None
         mesh_int = mesh

@@ -27,47 +27,73 @@ def _big(dtype) -> float:
     return 1e18 if dtype == torch.float32 else 1e150
 
 
-def centroidal_smoothing(points, cell_ctrs, td, do_boundary_smoothing):
-    """Mean of surrounding cell centres per point.
-
-    Skips boundary points (falls back to current coords) unless boundary
-    smoothing is enabled, exactly like the reference's eligibility test
-    (src/smoothMesh.C:114-119).  Returns the proposed point field.
-    """
-    pc = td["point_cells"].long()
+def _centroid_sums(points, cell_ctrs, td, do_boundary_smoothing, rows=None):
+    """The sums and counts of the eligible cell centres around each
+    point (of the points ``rows`` only, where given)."""
+    pc = td["point_cells"]
     m = td["point_cells_mask"]
-    eligible = td["is_internal_point"] | bool(do_boundary_smoothing)
-
+    internal = td["is_internal_point"]
+    if rows is not None:
+        pc, m, internal = pc[rows], m[rows], internal[rows]
+    eligible = internal | bool(do_boundary_smoothing)
     w = (m & eligible[:, None]).to(points.dtype)
-    sums = (cell_ctrs[pc] * w[..., None]).sum(1)                # (N, 3)
+    sums = (cell_ctrs[pc.long()] * w[..., None]).sum(1)         # (N, 3)
     counts = w.sum(1)                                           # (N,)
+    return sums, counts
 
+
+def _centroids(points, sums, counts):
     has = counts > 0
     return torch.where(has[:, None], sums / counts.clamp_min(1.0)[:, None],
                        points)
 
 
-def _closest_three(points, td):
+def centroidal_smoothing(points, cell_ctrs, td, do_boundary_smoothing,
+                         sync=None):
+    """Mean of surrounding cell centres per point.
+
+    Skips boundary points (falls back to current coords) unless boundary
+    smoothing is enabled, exactly like the reference's eligibility test
+    (src/smoothMesh.C:114-119).  Returns the proposed point field.
+    ``sync``: the disjoint decomposition's exchange
+    (``parallel.sync.UnionPointSync``/``DistPointSync``) or None; the
+    sums and the counts of a shared point are summed over its holders
+    before the division.
+    """
+    sums, counts = _centroid_sums(points, cell_ctrs, td,
+                                  do_boundary_smoothing)
+    if sync is not None:
+        sums = sync.sum(sums)
+        counts = sync.sum(counts)
+    return _centroids(points, sums, counts)
+
+
+def _closest_three(points, td, rows=None):
     """Per point: relative vectors + neighbour ids of the three closest
     edge-connected points, with the reference's boundary filtering
     (boundary points only consider boundary neighbours,
-    src/smoothMesh.C:277-308).
+    src/smoothMesh.C:277-308); of the points ``rows`` only, where given.
 
     Ties are broken by neighbour slot order (first minimum wins).
     Missing candidates (fewer than k eligible neighbours) get an
     UNDEF-style huge vector and id -1.
     """
     big = _big(points.dtype)
-    pp = td["point_points"].long()
+    pp = td["point_points"]
     mask = td["point_points_mask"]
     internal = td["is_internal_point"]
+    own, own_internal = points, internal
+    if rows is not None:
+        pp, mask = pp[rows], mask[rows]
+        own, own_internal = points[rows], internal[rows]
+    pp = pp.long()
 
-    rel = points[pp] - points[:, None, :]          # (N, W, 3)
+    rel = points[pp] - own[:, None, :]             # (N, W, 3)
     lengths = norm3(rel)
-    eligible = mask & (internal[:, None] | ~internal[pp])
+    eligible = mask & (own_internal[:, None] | ~internal[pp])
     lengths = torch.where(eligible, lengths, torch.inf)
 
-    rows = torch.arange(points.shape[0], device=points.device)
+    rows = torch.arange(own.shape[0], device=points.device)
     slots = torch.arange(lengths.shape[1], device=points.device)[None, :]
     outs = []
     ids = []
@@ -75,7 +101,7 @@ def _closest_three(points, td):
         slot = torch.argmin(lengths, dim=1)                      # (N,)
         found = lengths[rows, slot] < torch.inf
         vec = torch.where(found[:, None], rel[rows, slot],
-                          torch.full_like(points, big))
+                          torch.full_like(own, big))
         nid = torch.where(found, pp[rows, slot], -1)
         outs.append(vec)
         ids.append(nid)
@@ -101,13 +127,10 @@ def _share_cell(td, a_ids, b_ids):
     return eq.flatten(1).any(1) & (a_ids >= 0) & (b_ids >= 0)
 
 
-def _blend_fraction(points, td):
-    """The aspect-ratio blend fraction before the share-a-cell test (0
-    where either of the two closest vectors is zero), with the two
-    closest vectors and their neighbour ids."""
-    (c1, c2, c3), (i1, i2, _) = _closest_three(points, td)
-
-    internal = td["is_internal_point"]
+def _ratio_fraction(c1, c2, c3, internal):
+    """The aspect-ratio blend fraction from the three closest vectors,
+    before the share-a-cell test (0 where either of the two closest is
+    zero)."""
     l1 = norm3(c1)
     l2 = norm3(c2)
     l3 = norm3(c3)
@@ -122,7 +145,15 @@ def _blend_fraction(points, td):
 
     frac = torch.where(internal, frac_int, frac_bnd)
     zero1 = (c1 == 0.0).all(-1) | (c2 == 0.0).all(-1)
-    return torch.where(zero1, 0.0, frac), c1, c2, i1, i2
+    return torch.where(zero1, 0.0, frac)
+
+
+def _blend_fraction(points, td):
+    """The aspect-ratio blend fraction before the share-a-cell test,
+    with the two closest vectors and their neighbour ids."""
+    (c1, c2, c3), (i1, i2, _) = _closest_three(points, td)
+    frac = _ratio_fraction(c1, c2, c3, td["is_internal_point"])
+    return frac, c1, c2, i1, i2
 
 
 def share_test_mask(points, td):
@@ -133,7 +164,7 @@ def share_test_mask(points, td):
     return (frac > 0.0) & (i1 >= 0) & (i2 >= 0)
 
 
-def aspect_ratio_smoothing(points, centroidal_points, td):
+def aspect_ratio_smoothing(points, centroidal_points, td, sync=None):
     """Blend midpoint-of-two-closest-points with the centroidal target.
 
     Internal points: blend only when the two closest edge lengths are
@@ -141,10 +172,17 @@ def aspect_ratio_smoothing(points, centroidal_points, td):
     [1.5, 3] ramps the blend 0..1) — the reference's high-aspect-ratio
     detection (src/smoothMesh.C:489-543).  Boundary points use the
     [1.0, 2.0] ramp on the closest-two ratio.  Disabled when the two
-    closest points share a cell.
+    closest points share a cell.  ``sync``: the disjoint
+    decomposition's exchange or None; each holder of a shared point
+    then merges its three closest with the other holders' (the
+    reference's closest-point cascade, ``sync.closest_points``).
     """
-    frac, c1, c2, i1, i2 = _blend_fraction(points, td)
-    frac = torch.where(_share_cell(td, i1, i2), 0.0, frac)
+    (c1, c2, c3), (i1, i2, _) = _closest_three(points, td)
+    has_common = _share_cell(td, i1, i2)
+    if sync is not None:
+        c1, c2, c3, has_common = sync.closest_points(c1, c2, c3, has_common)
+    frac = _ratio_fraction(c1, c2, c3, td["is_internal_point"])
+    frac = torch.where(has_common, 0.0, frac)
     return _blend(points, centroidal_points, frac, c1, c2)
 
 
@@ -192,23 +230,59 @@ def constrain_max_step_length(points, proposed, max_step_length,
     return points + (rel_step_frac * scale)[:, None] * step
 
 
-def calculate_residual(points, new_points, max_step_length):
-    """max |displacement| / maxStepLength over all points."""
-    return norm3(new_points - points).max() / max_step_length
+def calculate_residual(points, new_points, max_step_length, sync=None):
+    """max |displacement| / maxStepLength over all points, all-reduced
+    over the shards by ``sync``."""
+    res = norm3(new_points - points).max() / max_step_length
+    return res if sync is None else sync.all_max(res)
 
 
 def predictor_plain(points, cell_ctrs, td, max_step, rel_step_frac,
-                    do_boundary):
+                    do_boundary, sync=None):
     """centroidal -> aspect-ratio blend -> step limiter, plus the
-    minimum current edge length per point (what K3 computes)."""
-    cent = centroidal_smoothing(points, cell_ctrs, td, do_boundary)
-    prop = aspect_ratio_smoothing(points, cent, td)
+    minimum current edge length per point (what K3 computes).  ``sync``:
+    the disjoint decomposition's exchange or None; the centroidal sums
+    and the closest points then combine over a shared point's holders,
+    which take the owner's proposal before the limiter (the JAX
+    driver's order, ``smoothmesh_tpu/driver.py:150-157``)."""
+    cent = centroidal_smoothing(points, cell_ctrs, td, do_boundary, sync)
+    prop = aspect_ratio_smoothing(points, cent, td, sync)
+    if sync is not None:
+        prop = sync.consensus(prop)
     prop = constrain_max_step_length(points, prop, max_step, rel_step_frac)
     rel = points[td["point_points"].long()] - points[:, None, :]
     curmin = torch.where(td["point_points_mask"], norm3(rel),
                          torch.inf).amin(1)
     curmin = torch.where(curmin < torch.inf, curmin, _big(points.dtype))
     return prop, curmin
+
+
+def predict_shared_rows(prop, points, cell_ctrs, td, max_step,
+                        rel_step_frac, do_boundary, sync):
+    """``prop`` (the predictor's proposal on every row of the disjoint
+    decomposition's shards) with the rows of the shared points
+    (``sync.rows``, one a holder) recomputed through the plain chain
+    with the exchanges: the centroidal sums over the holders, the
+    closest-point cascade, the owner's proposal, the step limiter.
+
+    Off those rows the proposal needs no exchange: a point that no
+    other shard holds has all its cells and edge neighbours on its own
+    shard, and the limiter works point by point, so the single-shard
+    predictor (K3 on the card) is exact there.  The rows here equal the
+    same rows of :func:`predictor_plain` with ``sync``.
+    """
+    rows = sync.rows
+    own = points[rows]
+    sums, counts = _centroid_sums(points, cell_ctrs, td, do_boundary, rows)
+    cent = _centroids(own, sync.pair_sum(sums), sync.pair_sum(counts))
+    (c1, c2, c3), (i1, i2, _) = _closest_three(points, td, rows)
+    c1, c2, c3, has_common = sync.pair_closest_points(
+        c1, c2, c3, _share_cell(td, i1, i2))
+    frac = _ratio_fraction(c1, c2, c3, td["is_internal_point"][rows])
+    frac = torch.where(has_common, 0.0, frac)
+    p = sync.pair_consensus(_blend(own, cent, frac, c1, c2))
+    p = constrain_max_step_length(own, p, max_step, rel_step_frac)
+    return prop.index_copy(0, rows, p)
 
 
 def predictor(points, cell_ctrs, td, max_step, rel_step_frac, do_boundary):

@@ -1,15 +1,18 @@
-"""Running a halo smoother one shard a rank over ``torch.distributed``.
+"""Running a decomposition's smoother one shard a rank over
+``torch.distributed``.
 
 :func:`run_ranks` starts ``world`` processes of this module (``python
 -m smoothmesh_torch.parallel.ranks JOB RANK WORLD``), each of which
 joins a gloo process group through a ``FileStore`` in the job's
-directory, builds the
-:class:`~smoothmesh_torch.parallel.halo.HaloSmoother` of its rank
-(``distributed=True``, :class:`~smoothmesh_torch.parallel.sync.DistSync`),
-runs its steps and writes its results there.  A rank imports only
-``torch`` and this package, so it starts in about a second on the CPU.
-The backend is gloo, the only one the halo's ranks support: on ``cuda``
-every rank takes the current device, so the ranks share one card.
+directory, builds the smoother of its rank (``distributed=True``): the
+halo's :class:`~smoothmesh_torch.parallel.halo.HaloSmoother`
+(:class:`~smoothmesh_torch.parallel.sync.DistSync`) or the disjoint
+:class:`~smoothmesh_torch.parallel.sharded.ShardedSmoother`
+(:class:`~smoothmesh_torch.parallel.sync.DistPointSync`), runs its
+steps and writes its results there.  A rank imports only ``torch`` and
+this package, so it starts in about a second on the CPU.  The backend
+is gloo, the only one the ranks support: on ``cuda`` every rank takes
+the current device, so the ranks share one card.
 """
 
 from __future__ import annotations
@@ -35,12 +38,14 @@ class Job:
     mesh: object
     params: object
     n_steps: int
-    #: the HaloSmoother's device and dtype by name; None: its defaults
+    #: the smoother's device and dtype by name; None: its defaults
     #: (``cuda``, float32)
     device: str = None
     dtype: str = None
     #: enable_boundary_smoothing's arguments, or None
     geometry: tuple = None
+    #: "halo" (HaloSmoother) or "disjoint" (ShardedSmoother)
+    decomposition: str = "halo"
 
 
 def run_ranks(job: Job, world: int, workdir, timeout_s: float = 600.0):
@@ -88,6 +93,7 @@ def _rank_main(job_path: str, rank: int, world: int) -> None:
     import torch.distributed as dist
 
     from smoothmesh_torch.parallel.halo import HaloSmoother
+    from smoothmesh_torch.parallel.sharded import ShardedSmoother
 
     torch.set_num_threads(1)
     with open(job_path, "rb") as f:
@@ -99,8 +105,10 @@ def _rank_main(job_path: str, rank: int, world: int) -> None:
                             timeout=timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     try:
         dtype = None if job.dtype is None else getattr(torch, job.dtype)
-        sm = HaloSmoother(job.mesh, job.params, device=job.device,
-                          dtype=dtype, distributed=True)
+        cls = {"halo": HaloSmoother,
+               "disjoint": ShardedSmoother}[job.decomposition]
+        sm = cls(job.mesh, job.params, device=job.device, dtype=dtype,
+                 distributed=True)
         if job.geometry is not None:
             sm.enable_boundary_smoothing(*job.geometry)
         results = sm.steps(job.n_steps)

@@ -1,13 +1,13 @@
 """Host-side scattering of globally computed layer and boundary set-up
 into per-shard blocks (numpy; the JAX package's
 ``smoothmesh_tpu.parallel.scatter``, same results, less the boundary
-pass's padded compaction rows and triangle count, which the halo
-smoother takes from its union).
+pass's padded compaction rows and triangle count, which the
+decompositions' smoother takes from its union).
 
-The halo driver computes the one-time set-up structures globally on the
+The decompositions compute the one-time set-up structures globally on the
 host (hop counts, prismatic maps, boundary classification; the
 reference, src/smoothMesh.C:2190-2230, computes them per rank with
-syncs) and restricts them to each shard's local point set, given by the
+syncs) and restrict them to each shard's local point set, given by the
 shard's ``l2g`` map (local point -> global point).  Blocks are
 ``(D, n_padded, ...)``; rows past a shard's point count hold the fill.
 """

@@ -16,8 +16,12 @@ its border ring as ``initEdges.obj`` and the shrunk ring as
   ``-device``;
 - the printed lines up to the loop equal the JAX CLI's on the same case
   (both with ``-centroidalIters 0``, so neither smooths);
-- ``-parallel`` is refused, a float64 run on the card is refused rather
-  than cast, and without ``-device`` a machine with no card raises.
+- ``-parallel`` runs the disjoint decomposition: in this process on the
+  CPU (one shard, the plain CLI's points to 1e-12) and in 2 gloo ranks
+  started as ``torchrun`` starts them (rank 0 writes
+  ``ShardedSmoother(n_shards=2)``'s points, bit for bit);
+- a float64 run on the card is refused rather than cast, and without
+  ``-device`` a machine with no card raises.
 """
 
 import os
@@ -34,6 +38,7 @@ from smoothmesh_torch.io.case import FoamCase
 from smoothmesh_torch.io.obj import read_obj_edges, read_obj_surface
 from smoothmesh_torch.io.polymesh import write_polymesh
 from smoothmesh_torch.mesh.blockmesh import hex_block
+from smoothmesh_torch.parallel.sharded import ShardedSmoother
 from smoothmesh_torch.params import SmoothingParams
 
 torch.set_num_threads(1)
@@ -162,13 +167,82 @@ def test_printed_setup_matches_jax(tmp_path, capsys):
     assert FoamCase(root).time_dirs() == []      # no iteration, no write
 
 
-def test_parallel_is_refused(tmp_path, capsys):
+PARALLEL_ITERS = 3
+
+
+def _case_geometry(root):
+    geo = os.path.join(root, "constant", "geometry")
+    sv, st = read_obj_surface(os.path.join(geo, "targetSurfaces.obj"))
+    iv, ie = read_obj_edges(os.path.join(geo, "initEdges.obj"))
+    tv, te = read_obj_edges(os.path.join(geo, "targetEdges.obj"))
+    return sv, st, iv, ie, tv, te
+
+
+def test_parallel_runs_in_process(tmp_path, capsys):
+    """-parallel on the CPU: one shard (the disjoint decomposition's
+    ShardedSmoother), the same points as the plain CLI's to 1e-12."""
+    roots = [_make_case(str(tmp_path / name)) for name in ("par", "one")]
+    args = ["-device", "cpu", "-dtype", "float64", "-centroidalIters",
+            str(PARALLEL_ITERS), "-writeFormat", "binary", "-checkMesh",
+            *OPTS]
+    assert cli.main(["-case", roots[0], "-parallel", *args]) == 0
+    out = capsys.readouterr().out
+    assert "Running sharded over 1 shards (one process on cpu)" in out
+    assert "Enabled boundary point smoothing" in out and "Mesh OK." in out
+    assert cli.main(["-case", roots[1], *args]) == 0
+    got, want = (FoamCase(r).read_mesh(float(PARALLEL_ITERS)).points
+                 for r in roots)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    for name in ("isCornerPoint", "isFeatureEdgePoint"):
+        a, b = (FoamCase(r).read_label_io_list(name, float(PARALLEL_ITERS),
+                                               len(got)) for r in roots)
+        np.testing.assert_array_equal(a, b)
+    assert np.abs(got - FoamCase(roots[0]).read_mesh(0.0).points).max() > 1e-3
+
+
+def test_parallel_runs_in_ranks(tmp_path):
+    """-parallel in 2 gloo ranks (started as torchrun starts them, RANK,
+    WORLD_SIZE, MASTER_ADDR and MASTER_PORT in their environment): rank
+    0 writes the points of ShardedSmoother(n_shards=2), bit for bit."""
+    import socket
+    import subprocess
+    import sys
+
     root = _make_case(str(tmp_path / "case"))
-    rc = cli.main(["-case", root, "-device", "cpu", "-parallel",
-                   "-centroidalIters", "1"])
-    assert rc != 0
-    assert "-parallel" in capsys.readouterr().err
-    assert FoamCase(root).time_dirs() == []
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+               WORLD_SIZE="2", OMP_NUM_THREADS="1", PYTHONPATH=repo)
+    cmd = [sys.executable, "-m", "smoothmesh_torch.cli", "-case", root,
+           "-parallel", "-device", "cpu", "-dtype", "float64",
+           "-centroidalIters", str(PARALLEL_ITERS), "-writeFormat",
+           "binary", *OPTS]
+    procs = [subprocess.Popen(cmd, env=dict(env, RANK=str(r)), cwd=repo,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert "Running sharded over 2 shards (torch.distributed ranks, " \
+        "gloo)" in outs[0]
+    assert "Running sharded" not in outs[1]
+    case = FoamCase(root)
+    assert case.time_dirs() == [float(PARALLEL_ITERS)]
+    ss = ShardedSmoother(case.read_mesh(0.0), SmoothingParams(
+        centroidal_iters=PARALLEL_ITERS, smoothing_patches=("top",),
+        min_angle=15.0), n_shards=2, device="cpu", dtype=torch.float64)
+    ss.enable_boundary_smoothing(*_case_geometry(root))
+    ss.steps(PARALLEL_ITERS)
+    np.testing.assert_array_equal(
+        case.read_mesh(float(PARALLEL_ITERS)).points, ss.denormalize())
 
 
 def test_no_card_raises_and_float64_on_card_is_refused(tmp_path, capsys,
