@@ -145,9 +145,36 @@ Phases, each fatal on failure:
      sharing cuda:0, bit-equal to UnionPointSync with 2 shards after 8
      iterations; and the CLI's -parallel on the 32^3 case (exit 0, the
      points read back);
-  8. one JSON line of the kernels (with the halo's and the disjoint
-     decomposition's launches), one of the halo's figures, one of the
-     disjoint decomposition's, then the last line
+  11. (before the record) float64 on the card, where every wrapper
+     runs its plain version and no kernel launches: the 32^3 mesh in
+     float64 for 8 iterations on the card against the CPU, at the
+     default band, at 60/120 and in the boundary configuration with the
+     max step pinned at 0.25 (every point within 1e-10 x the coordinate
+     scale, residuals within 1e-10 relative, equal ray misses, the
+     masks of the points each iteration held and the frozen counts
+     differing at most 1e-4 * N; the card's batched steps bit-equal to
+     its step() run); the 128^3 default path in float64, steps(32)
+     batched against one by one as in phase 4 (bit-equal, 2 host
+     reads, no launch), within 2e-3 in residual and 10% + 10 in frozen
+     count of phase 4's float32 kernels on every iteration, its
+     ms/iteration both ways, capture time and peak memory; the 128^3
+     boundary configuration in float64, 8 batched iterations, its
+     ms/iteration and peak memory; at 64^3 in 4 shards the halo
+     (use_tile_engine=True) against the single device and the disjoint
+     one (the rule's choice in float64) against it with the freezes
+     off, in float64 and then in float32: the farthest point in units
+     of the coordinate scale and the points beyond 1e-5 of it (phase
+     9's and 10's tolerances); the CLI with -dtype float64 on the 32^3
+     case on the card and on the CPU (-checkMesh: exit 0, Mesh OK, the
+     report's integers equal and the rest within 1e-9 relative + 1e-12,
+     the written points within 1e-10 x the scale) and with -parallel
+     (exit 0); no kernel launched in any float64 run of the phase
+     (launch and capture counts); then a float32 step() launching K1-K6
+     once each and a float16 smoother on cuda raising TypeError;
+  8. one JSON line of the halo's figures, one of the disjoint
+     decomposition's, one of phase 11's, one of the kernels (with the
+     halo's and the disjoint decomposition's launches), then the last
+     line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without
@@ -252,6 +279,19 @@ DIST_WORLD = 2
 #: the freezes off, against the single device
 SHARDED_SHARDS = 4
 SHARDED_ITERS = 8
+#: phase 11: float64 on the card (the plain versions, no kernel): the
+#: iterations of the 32^3 runs against the CPU and of the 64^3
+#: decompositions against the single device; the card against the CPU:
+#: every point within F64_POINT_TOL x the coordinate scale, residuals
+#: within F64_RES_TOL relative, the CLI's report within F64_REPORT_REL
+#: relative (with an F64_REPORT_ABS floor for the report's values that
+#: are float64 residues near 0: the skewness and the cell openness)
+F64_ITERS = 8
+F64_POINT_TOL = 1e-10
+F64_RES_TOL = 1e-10
+F64_REPORT_REL = 1e-9
+F64_REPORT_ABS = 1e-12
+F64_DEC_SIDE = 64
 
 
 T_START = time.perf_counter()
@@ -1960,6 +2000,349 @@ def sharded_phase(mesh, mesh_int, topo, orders, smi: str,
     return out
 
 
+def write_case(root: str, mesh) -> None:
+    """An OpenFOAM case of ``mesh`` (binary) in ``root``."""
+    from smoothmesh_torch.io.polymesh import write_polymesh
+
+    os.makedirs(os.path.join(root, "system"))
+    with open(os.path.join(root, "system", "controlDict"), "w") as f:
+        f.write("deltaT 1;\n")
+    write_polymesh(os.path.join(root, "constant", "polyMesh"), mesh,
+                   binary=True)
+
+
+def held_steps(sm, n: int) -> tuple:
+    """Phase 11: ``sm.step()`` n times -> (the StepResults, each
+    iteration's (N,) mask of the points it held where they were: the
+    frozen, the fixed and those that did not move, on the host)."""
+    results, held = [], []
+    for _ in range(n):
+        before = sm.points
+        results.append(sm.step())
+        held.append((sm.points == before).all(1).cpu())
+    return results, held
+
+
+def decomposition_gap(label: str, got, want, got_pts, want_pts,
+                      frozen_tol=None) -> dict:
+    """Phase 11: a decomposition's run against the single device's from
+    the same start: the farthest point in units of the coordinate scale
+    (max |x| of the single device's points), the points beyond
+    HALO_POINT_TOL of it, residuals relative; held to phase 9's
+    HALO_POINT_MAX and HALO_RES_TOL, and frozen counts within
+    ``frozen_tol`` where given (the disjoint one counts a shared point
+    once a holder)."""
+    scale = float(np.abs(want_pts).max())
+    dist = np.linalg.norm(got_pts - want_pts, axis=1)
+    d_res = max(abs(a.residual - b.residual) / max(abs(b.residual), 1e-300)
+                for a, b in zip(got, want))
+    d_frozen = max(abs(a.n_frozen - b.n_frozen) for a, b in zip(got, want))
+    out = dict(farthest_of_scale=float(dist.max()) / scale,
+               beyond_1e5_of_scale=int((dist > HALO_POINT_TOL * scale).sum()),
+               residual_rel=d_res, frozen=d_frozen,
+               points_bit_equal=int((got_pts == want_pts).all(1).sum()))
+    require(len(got) == len(want) and float(dist.max()) <= HALO_POINT_MAX
+            * scale and d_res <= HALO_RES_TOL
+            and (frozen_tol is None or d_frozen <= frozen_tol),
+            f"{label}: {out}")
+    return out
+
+
+def float64_phase(mesh_int, topo, steps32, smi: str) -> dict:
+    """Phase 11: float64 on the card, where every wrapper runs its plain
+    version (no kernel launches) -> its figures.  ``mesh_int``, ``topo``:
+    phase 2's reordered 128^3 mesh and its topology; ``steps32``: phase
+    4's float32 StepResults of the default path there."""
+    from smoothmesh_torch import cli, kernels
+    from smoothmesh_torch.driver import Smoother
+    from smoothmesh_torch.io.case import FoamCase
+    from smoothmesh_torch.mesh.tiling import permute_mesh
+    from smoothmesh_torch.mesh.topology import compile_topology
+    from smoothmesh_torch.parallel.halo import HaloSmoother
+    from smoothmesh_torch.parallel.sharded import ShardedSmoother
+    from smoothmesh_torch.params import SmoothingParams
+    from smoothmesh_torch.testcases import bench_dome_geometry
+
+    f64 = torch.float64
+    out = {}
+    dome = bench_dome_geometry()[1:]
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    for k in kernels.ALL:       # what the last float32 capture recorded
+        k.captured = 0
+
+    def no_launches(label: str) -> None:
+        launched = {k.name: k.launches + k.captured for k in kernels.ALL
+                    if k.launches or k.captured}
+        require(not launched, f"{label}: float64 launched {launched}")
+
+    wall_clock(f"phase 11: the card against the CPU at {SMALL_SIDE}^3")
+    small = bench_mesh(SMALL_SIDE)
+    n_small = small.n_points
+    base = SmoothingParams(centroidal_iters=F64_ITERS, rel_tol=0.0)
+    configs = (
+        ("default", base, None),
+        (f"band {TIGHT_BAND}", dataclasses.replace(
+            base, min_angle=TIGHT_BAND[0], max_angle=TIGHT_BAND[1]), None),
+        (f"boundary, max step {SMALL_BND_MAX_STEP}", dataclasses.replace(
+            boundary_params(F64_ITERS), max_step_length=SMALL_BND_MAX_STEP),
+         dome))
+    out["card_against_cpu"] = {}
+    for label, params, geometry in configs:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            s = Smoother(small, params, dtype=f64, device=dev)
+            if geometry is not None:
+                s.enable_boundary_smoothing(*geometry)
+            if dev == "cuda":
+                start = (s.points.clone(), s.normals.clone())
+                small_batched_against_one_by_one(
+                    s, F64_ITERS, f"float64 {SMALL_SIDE}^3 {label}")
+                batched = s.points
+                s.points, s.normals = start[0].clone(), start[1].clone()
+                s._iteration = 0
+            results, held = held_steps(s, F64_ITERS)
+            if dev == "cuda":
+                require(torch.equal(s.points, batched),
+                        f"float64 {SMALL_SIDE}^3 {label}: step() and the "
+                        "batched steps differ")
+            runs[dev] = (results, held, s.denormalize())
+        (rk, hk, pk), (rc, hc, pc) = runs["cuda"], runs["cpu"]
+        scale = float(np.abs(pc).max())
+        far = float(np.linalg.norm(pk - pc, axis=1).max())
+        d_res = max(abs(a.residual - b.residual) / max(abs(b.residual),
+                                                       1e-300)
+                    for a, b in zip(rk, rc))
+        d_frozen = [a.n_frozen - b.n_frozen for a, b in zip(rk, rc)]
+        masks = [int((a != b).sum()) for a, b in zip(hk, hc)]
+        misses = ([r.n_ray_miss for r in rk], [r.n_ray_miss for r in rc])
+        for i, (a, b) in enumerate(zip(hk, hc)):
+            for j in torch.nonzero(a != b).squeeze(1)[:5].tolist():
+                print(f"  float64 {SMALL_SIDE}^3 {label}, iteration "
+                      f"{i + 1}: point {j} held on the card {bool(a[j])}, "
+                      f"on the CPU {bool(b[j])}")
+        rec = dict(farthest_of_scale=far / scale, residual_rel=d_res,
+                   frozen_differences=d_frozen, held_masks_differing=masks,
+                   ray_misses=misses[0])
+        out["card_against_cpu"][label] = rec
+        require(far <= F64_POINT_TOL * scale and d_res <= F64_RES_TOL
+                and misses[0] == misses[1]
+                and max(masks) <= MASK_TOL * n_small
+                and max(map(abs, d_frozen)) <= MASK_TOL * n_small,
+                f"float64 {SMALL_SIDE}^3 {label}, the card against the "
+                f"CPU: {rec}")
+        print(f"float64 {SMALL_SIDE}^3 x {F64_ITERS}, {label}: the card "
+              f"against the CPU, the farthest point {far / scale:.3g} of "
+              f"the coordinate scale, residuals within {d_res:.3g} "
+              f"relative, frozen counts {rk[-1].n_frozen} vs "
+              f"{rc[-1].n_frozen} (differences {d_frozen}), held masks "
+              f"differing {masks}, ray misses {misses[0]} vs {misses[1]}",
+              flush=True)
+    no_launches(f"{SMALL_SIDE}^3 runs")
+
+    wall_clock(f"phase 11: the default path at {MAIN_SIDE}^3")
+    N = topo.n_points
+    t0 = time.perf_counter()
+    sm = Smoother(mesh_int, SmoothingParams(centroidal_iters=MAIN_ITERS,
+                                            rel_tol=0.0),
+                  dtype=f64, topo=topo, device="cuda")
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    run = batched_against_one_by_one(
+        sm, MAIN_ITERS, f"float64 default path at {MAIN_SIDE}^3", smi,
+        {k: 0 for k in kernels.ALL})
+    for a, b in zip(run["steps"], steps32):
+        require(math.isfinite(a.residual)
+                and abs(a.residual - b.residual) < 2e-3
+                and abs(a.n_frozen - b.n_frozen) <= 0.1 * b.n_frozen + 10,
+                f"float64 default path, iteration {a.iteration}: residual "
+                f"{a.residual}, nFrozen {a.n_frozen} against float32's "
+                f"{b.residual}, {b.n_frozen}")
+    last, last32 = run["steps"][-1], steps32[-1]
+    out["default_128"] = dict(
+        ms_batched=run["ms_batched"], ms_one=run["ms_one"],
+        capture_s=run["capture_s"], peak_gb=run["peak_gb"],
+        setup_s=t_setup, residual=last.residual, n_frozen=last.n_frozen,
+        residual_f32=last32.residual, n_frozen_f32=last32.n_frozen)
+    print(f"float64 default path at {MAIN_SIDE}^3: set-up on the compiled "
+          f"topology {t_setup:.2f} s; {run['ms_batched']:.3f} ms/iteration "
+          f"batched, {run['ms_one']:.3f} one by one, capture "
+          f"{run['capture_s']:.3f} s, peak {run['peak_gb']:.2f} GB; against "
+          f"phase 4's float32 kernels: last residual {last.residual:.6g} "
+          f"vs {last32.residual:.6g}, nFrozen {last.n_frozen} vs "
+          f"{last32.n_frozen} (every iteration within 2e-3 and 10% + 10);"
+          f" {N / (run['ms_batched'] / 1e3):,.0f} point-updates/s on "
+          f"{smi}", flush=True)
+    del sm, run
+    torch.cuda.empty_cache()
+
+    wall_clock(f"phase 11: the boundary path at {MAIN_SIDE}^3")
+    t0 = time.perf_counter()
+    sb = Smoother(mesh_int, boundary_params(F64_ITERS), dtype=f64,
+                  topo=topo, device="cuda")
+    sb.enable_boundary_smoothing(*dome)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t_capture = sb.prepare_batch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rb = sb.steps(F64_ITERS)
+    t_run = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(len(rb) == F64_ITERS
+            and all(math.isfinite(r.residual) for r in rb),
+            f"float64 boundary path at {MAIN_SIDE}^3: {rb}")
+    out["boundary_128"] = dict(
+        ms_batched=t_run * 1e3 / F64_ITERS, capture_s=t_capture,
+        peak_gb=peak, setup_s=t_setup, residual=rb[-1].residual,
+        n_frozen=rb[-1].n_frozen, n_ray_miss=rb[-1].n_ray_miss)
+    print(f"float64 boundary path at {MAIN_SIDE}^3: set-up with the "
+          f"classification {t_setup:.2f} s, capture {t_capture:.3f} s, "
+          f"steps({F64_ITERS}) batched {t_run * 1e3 / F64_ITERS:.3f} "
+          f"ms/iteration, peak device memory over the capture and the run "
+          f"{peak:.2f} GB; last residual {rb[-1].residual:.6g}, nFrozen "
+          f"{rb[-1].n_frozen}, ray misses {rb[-1].n_ray_miss} on {smi}",
+          flush=True)
+    del sb
+    torch.cuda.empty_cache()
+    no_launches(f"{MAIN_SIDE}^3 runs")
+
+    wall_clock(f"phase 11: the decompositions at {F64_DEC_SIDE}^3")
+    mesh_d = bench_mesh(F64_DEC_SIDE)
+    mesh_d_int, orders_d = permute_mesh(mesh_d)
+    topo_d = compile_topology(mesh_d_int)
+    n_d = mesh_d.n_points
+    params = SmoothingParams(centroidal_iters=F64_ITERS, rel_tol=0.0)
+
+    def decompositions(dtype) -> dict:
+        single = Smoother(mesh_d_int, params, dtype=dtype, topo=topo_d,
+                          device="cuda")
+        start = (single.points.clone(), single.normals.clone())
+        want = single.steps(F64_ITERS)
+        want_pts = single.denormalize()[orders_d.point_new]
+        ff = dataclasses.replace(
+            single.params,
+            min_edge_length=1e-12 * single.params.min_edge_length,
+            edge_angle_constraint=False, face_angle_constraint=False)
+        single.points, single.normals = start[0].clone(), start[1].clone()
+        single._iteration, single.params = 0, ff
+        want_ff = single.steps(F64_ITERS)
+        want_ff_pts = single.denormalize()[orders_d.point_new]
+        del single
+        name = str(dtype).split(".")[1]
+        hs = Smoother(mesh_d, params, dtype=dtype, device="cuda",
+                      n_devices=HALO_SHARDS, use_tile_engine=True)
+        require(type(hs) is HaloSmoother, f"{name}: {type(hs)}")
+        got = hs.steps(F64_ITERS)
+        rec = {"halo": decomposition_gap(
+            f"{name} halo at {F64_DEC_SIDE}^3", got, want, hs.denormalize(),
+            want_pts, HALO_COUNT_TOL * n_d)}
+        del hs
+        # float64 takes the disjoint one by the rule, float32 is told to
+        ss = Smoother(mesh_d, ff, dtype=dtype, device="cuda",
+                      n_devices=SHARDED_SHARDS,
+                      use_tile_engine=None if dtype == f64 else False)
+        require(type(ss) is ShardedSmoother, f"{name}: {type(ss)}")
+        got = ss.steps(F64_ITERS)
+        require(holders_identical(ss), f"{name} disjoint at "
+                f"{F64_DEC_SIDE}^3: the holders differ")
+        rec["disjoint_freeze_free"] = decomposition_gap(
+            f"{name} disjoint at {F64_DEC_SIDE}^3", got, want_ff,
+            ss.denormalize(), want_ff_pts)
+        del ss
+        torch.cuda.empty_cache()
+        for k, r in rec.items():
+            print(f"{name} {k} at {F64_DEC_SIDE}^3, {HALO_SHARDS} shards x "
+                  f"{F64_ITERS} against the single device: the farthest "
+                  f"point {r['farthest_of_scale']:.3g} of the coordinate "
+                  f"scale, {r['beyond_1e5_of_scale']} of {n_d} beyond 1e-5 "
+                  f"of it, {r['points_bit_equal']} bit-equal; residuals "
+                  f"within {r['residual_rel']:.3g} relative, frozen counts "
+                  f"{r['frozen']} apart (the disjoint one counts a shared "
+                  "point once a holder)", flush=True)
+        return rec
+
+    out["decompositions_float64"] = decompositions(f64)
+    no_launches(f"{F64_DEC_SIDE}^3 decompositions")
+
+    wall_clock("phase 11: the CLI")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f64_") as root:
+        reports, texts, written = {}, {}, {}
+        for how, extra in (("cuda", ["-device", "cuda"]),
+                           ("cpu", ["-device", "cpu"]),
+                           ("cuda -parallel", ["-device", "cuda",
+                                               "-parallel"])):
+            case = os.path.join(root, how.replace(" ", ""))
+            write_case(case, small)
+            args = ["-case", case, "-dtype", "float64", *extra,
+                    "-centroidalIters", str(F64_ITERS), "-checkMesh",
+                    "-writeFormat", "binary"]
+            kept, timers = [], {}
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with timed(timers, Smoother, "quality", "report", kept), \
+                    contextlib.redirect_stdout(text):
+                rc = cli.main(args)
+            t_cli = time.perf_counter() - t0
+            texts[how] = text.getvalue()
+            require(rc == 0 and "Mesh OK." in texts[how],
+                    f"the float64 CLI ({how}) exited with {rc}: "
+                    + texts[how][-400:])
+            written[how] = FoamCase(case).read_mesh(float(F64_ITERS)).points
+            if kept:
+                reports[how] = kept[0]
+            print(f"CLI -dtype float64 {' '.join(extra)} -checkMesh on the "
+                  f"{SMALL_SIDE}^3 case: exit 0 in {t_cli:.2f} s", flush=True)
+    rep_k, rep_c = reports["cuda"], reports["cpu"]
+    bad = [k for k, v in rep_c.items()
+           if (rep_k[k] != v if isinstance(v, int) else
+               abs(rep_k[k] - v) > F64_REPORT_REL * abs(v) + F64_REPORT_ABS)]
+    worst, worst_key = max(
+        ((abs(rep_k[k] - v) / abs(v), k) for k, v in rep_c.items()
+         if not isinstance(v, int) and v != 0), default=(0.0, None))
+    scale = float(np.abs(written["cpu"]).max())
+    far = {how: float(np.linalg.norm(written[how] - written["cpu"],
+                                     axis=1).max()) / scale
+           for how in ("cuda", "cuda -parallel")}
+    require(not bad and far["cuda"] <= F64_POINT_TOL,
+            f"the float64 CLI, the card against the CPU: report keys {bad} "
+            f"differ, written points {far['cuda']:.3g} of the scale apart")
+    out["cli"] = dict(report_worst_rel=worst, report_worst_key=worst_key,
+                      written_farthest_of_scale=far)
+    print(f"CLI -dtype float64 on the card against the CPU: the report's "
+          f"{len(rep_c)} keys agree (integers equal, the largest relative "
+          f"difference {worst:.3g}, of {worst_key}: card "
+          f"{rep_k.get(worst_key)!r}, CPU {rep_c.get(worst_key)!r}), the "
+          f"written points within "
+          f"{far['cuda']:.3g} of the coordinate scale (-parallel: "
+          f"{far['cuda -parallel']:.3g})", flush=True)
+    no_launches("the float64 CLI")
+    out["launches_float64"] = {k.name: k.launches for k in kernels.ALL}
+
+    wall_clock("phase 11: float32 after float64, float16 refused")
+    s32 = Smoother(small, base, device="cuda")
+    kernels.reset_launches()
+    s32.step()
+    launched = {k: k.launches for k in kernels.ALL}
+    require(all(n == (0 if k in (kernels.TABLE_GATHER, kernels.RAYCAST)
+                      else 1) for k, n in launched.items()),
+            f"a float32 step() launched {launched}")
+    del s32
+    try:
+        Smoother(small, base, dtype=torch.float16, device="cuda")
+    except TypeError as e:
+        refused = str(e)
+    else:
+        refused = None
+    require(refused is not None, "a float16 smoother on cuda was accepted")
+    print(f"float32 step() after the float64 runs: K1-K6 launched once "
+          f"each, K7 and K8 none; float16 on cuda: TypeError({refused!r})",
+          flush=True)
+    out["decompositions_float32"] = decompositions(torch.float32)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2452,6 +2835,10 @@ def main() -> int:
     sharded = sharded_phase(mesh, mesh_int, topo, orders, smi,
                             {k: r["ms"] for k, r in results.items()})
 
+    wall_clock("phase 11")
+    # -- 11. float64 on the card ---------------------------------------------
+    float64 = float64_phase(mesh_int, topo, steps, smi)
+
     wall_clock("phase 8")
     # -- 8. the record ----------------------------------------------------
     main_path = {kernels.RAYCAST: bnd["launches"],
@@ -2473,6 +2860,7 @@ def main() -> int:
                                if k != "launches"}}))
     print(json.dumps({"sharded": {k: v for k, v in sharded.items()
                                   if k != "launches"}}))
+    print(json.dumps({"float64": float64}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

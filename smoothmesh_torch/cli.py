@@ -10,7 +10,9 @@ options (``-centroidalIters 50``) as well as double-dash GNU style.
 One option more: ``-device`` (default ``cuda``) names the torch device,
 as choosing a JAX platform does for the JAX package.  ``-device cpu``
 runs the kernels' plain PyTorch versions; without it, a machine with no
-CUDA device raises.
+CUDA device raises.  On ``cuda``, ``-dtype float64`` runs the plain
+versions on the card (no kernel), as the JAX CLI's ``-dtype float64``
+runs XLA on its device and no Pallas kernel.
 
 ``-parallel`` runs the disjoint domain decomposition
 (``parallel.sharded.ShardedSmoother``), as the JAX CLI does, over all
@@ -100,8 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
     a("-relTol", "--relTol", type=float, default=0.02)
     a("-writeInterval", "--writeInterval", type=int, default=None)
     a("-dtype", "--dtype", default=None,
-      help="coordinate dtype on the device (float32/float64; the CUDA "
-      "kernels take float32)")
+      help="coordinate dtype on the device (float32/float64): on cuda "
+      "float32 runs the CUDA kernels, float64 their plain PyTorch "
+      "versions on the card")
     a("-profileDir", "--profileDir", default=None,
       help="capture a torch.profiler trace of the smoothing loop")
     a("-checkMesh", "--checkMesh", action="store_true",
@@ -115,8 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
       help="polyMesh output format (OpenFOAM writeFormat equivalent; "
       "binary meshes are also READ transparently)")
     a("-device", "--device", default="cuda",
-      help="torch device: cuda (the CUDA kernels) or cpu (their plain "
-      "PyTorch versions)")
+      help="torch device: cuda (the CUDA kernels in float32) or cpu "
+      "(their plain PyTorch versions)")
     return ap
 
 
@@ -233,7 +236,7 @@ def _smooth(args, device: torch.device, n_shards, distributed: bool) -> int:
                                        distributed=distributed)
             # its boundary classification is in the mesh's point order
             to_ext = np.asarray
-    except TypeError as e:      # a dtype the device's kernels do not take
+    except TypeError as e:      # a dtype the device does not run
         print(f"FATAL: {e}", file=sys.stderr)
         return 1
     writes = not distributed or torch.distributed.get_rank() == 0

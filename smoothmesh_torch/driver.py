@@ -38,16 +38,17 @@ each.
 The face-angle step is the JAX driver's tile-engine branch
 (``smoothmesh_tpu/driver.py:321-327``) on every device: the fixed point
 in u space, with the current angles from K5/K6 (their plain versions on
-the CPU) and its 1e-5 u guard against last-bit noise.  Not its XLA
-branch (``:246-249``, angle space, no guard): that one compares the
-current and the substituted angles from two arithmetic paths, so where
-a substitution leaves an edge unchanged its decision follows last-bit
-noise (see tests/test_torch_driver.py).
+the CPU and in float64) and its 1e-5 u guard against last-bit noise.
+Not its XLA branch (``:246-249``, angle space, no guard): that one
+compares the current and the substituted angles from two arithmetic
+paths, so where a substitution leaves an edge unchanged its decision
+follows last-bit noise (see tests/test_torch_driver.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import os
 import time
 from typing import Callable, NamedTuple, Optional
@@ -65,9 +66,8 @@ from smoothmesh_torch.mesh.tiling import MeshOrders, permute_mesh
 from smoothmesh_torch.mesh.topology import MeshTopology, compile_topology
 from smoothmesh_torch.ops import constraints, raycast, smoothing
 from smoothmesh_torch.params import SmoothingParams
-from smoothmesh_torch.quality import (CUDA_QUALITY_TD_KEYS,
-                                     QUALITY_TD_KEYS, mesh_stats,
-                                     quality_report)
+from smoothmesh_torch.quality import (mesh_stats, quality_report,
+                                     quality_td_keys)
 
 
 @dataclasses.dataclass
@@ -99,7 +99,8 @@ class Stages(NamedTuple):
     ray_cast: Callable
 
 
-#: The wrappers: plain versions on CPU tensors, kernels on CUDA tensors.
+#: The wrappers: kernels on float32 CUDA tensors, plain versions on CPU
+#: tensors and float64 CUDA tensors (``kernels.takes_kernel``).
 KERNEL_STAGES = Stages(geo.face_centres_areas, geo.cell_centres_vols,
                        smoothing.predictor, constraints.freeze_constraints,
                        constraints.face_angles_per_point,
@@ -138,10 +139,13 @@ NORMALS_TD_KEYS = frozenset({"point_faces", "point_faces_mask",
                              "face_is_real_boundary"})
 
 
-def td_keys(device: torch.device, normals: bool = False) -> frozenset:
-    """The device-topology tables one iteration reads on ``device``,
-    with or without the boundary point normals."""
-    keys = CUDA_TD_KEYS if device.type == "cuda" else TD_KEYS
+def td_keys(device: torch.device, normals: bool = False,
+            dtype: torch.dtype = torch.float32) -> frozenset:
+    """The device-topology tables one iteration reads for coordinates of
+    ``dtype`` on ``device`` (the kernels' where they launch, else the
+    plain versions'), with or without the boundary point normals."""
+    keys = (CUDA_TD_KEYS if kernels.takes_kernel(device, dtype, "td_keys")
+            else TD_KEYS)
     return (keys | NORMALS_TD_KEYS) if normals else keys
 
 
@@ -344,8 +348,11 @@ class _Batch:
                         owned=sm.owned)
         self._fatal = bool(sm.params.ray_miss_fatal) and sm.bnd is not None
         capturable = sm.sync is None or sm.sync.capturable
-        self.graph = (kernels.Graph(self._iteration)
-                      if dev.type == "cuda" and capturable else None)
+        self.graph = None
+        if dev.type == "cuda" and capturable:
+            if kernels.takes_kernel(dev, sm.dtype):
+                kernels.build_all()     # all at once, before the warm-up
+            self.graph = kernels.Graph(self._iteration)
 
     def _iteration(self) -> None:
         done = self.done
@@ -389,28 +396,40 @@ class _Batch:
 class _Delegating(type):
     """``Smoother(..., n_devices=N)`` with N > 1 builds a domain
     decomposition's smoother over N shards instead, as the JAX package's
-    ``Smoother`` delegates (``smoothmesh_tpu/driver.py:405-427``)."""
+    ``Smoother`` delegates (``smoothmesh_tpu/driver.py:405-427``), with
+    ``n_devices`` given by keyword or by position."""
 
     def __call__(cls, *args, **kw):
-        if cls is Smoother and kw.get("n_devices") not in (None, 1):
-            return _decomposed(*args, **kw)
+        if cls is Smoother:
+            given = inspect.signature(cls.__init__).bind(
+                None, *args, **kw).arguments
+            if given.get("n_devices") not in (None, 1):
+                del given["self"]
+                return _decomposed(**given)
         return super().__call__(*args, **kw)
+
+
+def decomposition(device, dtype=None, use_tile_engine=None) -> str:
+    """The decomposition ``Smoother(..., n_devices=N)`` builds for N > 1:
+    ``"halo"`` where the JAX package takes its tile engine, on the
+    kernels' device (``cuda``) in float32, ``"disjoint"`` everywhere
+    else (float64 too, as the JAX package's tile engine is float32
+    only); ``use_tile_engine`` True or False picks the halo or the
+    disjoint one."""
+    if use_tile_engine is None:
+        use_tile_engine = (torch.device(device).type == "cuda"
+                           and dtype in (None, torch.float32))
+    return "halo" if use_tile_engine else "disjoint"
 
 
 def _decomposed(mesh, params, dtype=None, topo=None, device=None,
                 normalize=True, n_devices=None, use_tile_engine=None):
-    """The smoother of ``Smoother(..., n_devices=N)`` for N > 1: the halo
-    decomposition (``parallel.halo.HaloSmoother``) where the JAX package
-    takes its tile engine, on the kernels' device (``cuda``) in
-    float32, the disjoint one (``parallel.sharded.ShardedSmoother``)
-    everywhere else; ``use_tile_engine`` True or False picks the halo or
-    the disjoint one.  ``topo`` is not used: each shard compiles its
-    own."""
+    """The smoother of ``Smoother(..., n_devices=N)`` for N > 1 (the
+    halo's ``parallel.halo.HaloSmoother`` or the disjoint one's
+    ``parallel.sharded.ShardedSmoother``, as :func:`decomposition`
+    picks).  ``topo`` is not used: each shard compiles its own."""
     device = resolve_device(device)
-    halo = use_tile_engine
-    if halo is None:
-        halo = device.type == "cuda" and dtype in (None, torch.float32)
-    if halo:
+    if decomposition(device, dtype, use_tile_engine) == "halo":
         from smoothmesh_torch.parallel.halo import HaloSmoother as cls
     else:
         from smoothmesh_torch.parallel.sharded import ShardedSmoother as cls
@@ -428,8 +447,12 @@ class Smoother(metaclass=_Delegating):
         the initial mesh stats (reference src/smoothMesh.C:1854-1921).
         Boundary-layer blending runs when ``layer_patches`` match a
         patch and ``layer_max_blending_fraction`` is positive.
-    dtype: coordinate dtype (default float32; the kernels take
-        float32, the plain CPU versions any float dtype).
+    dtype: coordinate dtype (default float32).  On ``cuda`` float32
+        launches the CUDA kernels and float64 runs their plain PyTorch
+        versions on the card (no kernel, as the JAX package runs
+        float64 through XLA, never through Pallas); another dtype
+        raises ``TypeError`` there.  On the CPU the plain versions take
+        any float dtype.
     topo: a precompiled topology of ``mesh``; without one the mesh is
         spatially reordered (``permute_mesh``) and compiled here by the
         native topology compiler (``compile_topology``, C++ built at
@@ -438,9 +461,10 @@ class Smoother(metaclass=_Delegating):
     normalize: centre the points and scale them so that the minimum edge
         length is 1 (float32 stays accurate at any absolute scale);
         False keeps external coordinates.
-    n_devices: None or 1 for this smoother; N > 1 returns a domain
-        decomposition's smoother over N shards on ``device`` instead
-        (the halo on ``cuda`` in float32, else the disjoint one;
+    n_devices: None or 1 for this smoother; N > 1 (by keyword or by
+        position) returns a domain decomposition's smoother over N
+        shards on ``device`` instead (the halo on ``cuda`` in float32,
+        else the disjoint one, :func:`decomposition`;
         ``use_tile_engine`` True or False picks the halo or the
         disjoint one, as the JAX package's argument of that name picks
         its tile engine's halo), with the same surface.
@@ -490,8 +514,9 @@ class Smoother(metaclass=_Delegating):
         and boundary smoothing start off (no maps)."""
         device = resolve_device(device)
         dtype = torch.float32 if dtype is None else dtype
-        if device.type == "cuda" and dtype != torch.float32:
-            raise TypeError("the CUDA kernels take float32 coordinates")
+        # float32 takes the kernels on the card, float64 their plain
+        # versions; another dtype raises TypeError there
+        kernels.takes_kernel(device, dtype, "Smoother")
         self.device = device
         self.dtype = dtype
         self.topo = topo
@@ -503,7 +528,8 @@ class Smoother(metaclass=_Delegating):
         self._will_layer = bool(len(self._layer_ids)
                                and params.layer_max_blending_fraction
                                > 1e-15)
-        self.td = to_device(topo, device, td_keys(device, self._will_layer))
+        self.td = to_device(topo, device,
+                            td_keys(device, self._will_layer, dtype))
         self.points = self._tensor(points, dtype)
         # the halo exchange and owner mask (parallel.halo); none here
         self.sync = None
@@ -860,9 +886,7 @@ class Smoother(metaclass=_Delegating):
         """The checkMesh-style report (``quality.quality_report``) of the
         current points, with length- and volume-valued metrics in
         external units."""
-        keys = (CUDA_QUALITY_TD_KEYS if self.device.type == "cuda"
-                else QUALITY_TD_KEYS)
-        missing = keys - set(self.td)
+        missing = quality_td_keys(self.device, self.dtype) - set(self.td)
         if missing:
             self.td.update(to_device(self.topo, self.device, missing))
         rep = quality_report(self.points, self.td)

@@ -11,10 +11,10 @@ src/smoothMesh.C:129, :1218 via ``mesh.C()``), which
 
 Each function has a plain PyTorch version (``*_plain``, masked gathers
 over the padded topology, any float dtype) and a wrapper of the same
-name without the suffix: for CPU tensors the wrapper runs the plain
-version, for CUDA tensors it launches the hand-written kernel
-(``csrc/face_geometry.cu`` = K1, ``csrc/cell_centres.cu`` = K2; float32)
-or raises.
+name without the suffix: for float32 CUDA tensors it launches the
+hand-written kernel (``csrc/face_geometry.cu`` = K1,
+``csrc/cell_centres.cu`` = K2) or raises; for CPU tensors and float64
+CUDA tensors it runs the plain version (``kernels.takes_kernel``).
 """
 
 from __future__ import annotations
@@ -101,11 +101,9 @@ def face_centres_areas(points, face_points, face_mask,
                        face_npoints) -> FaceGeometry:
     """OpenFOAM face centres, area vectors and vertex means (K1)."""
     dev = points.device
-    if dev.type == "cpu":
+    if not kernels.takes_kernel(dev, points.dtype, "face_centres_areas"):
         return face_centres_areas_plain(points, face_points, face_mask,
                                         face_npoints)
-    if dev.type != "cuda":
-        raise ValueError(f"face_centres_areas: no kernel for {dev}")
     n_faces, width = face_points.shape
     kernels.check(points, "points", torch.float32, (points.shape[0], 3), dev)
     kernels.check(face_points, "face_points", torch.int32,
@@ -161,10 +159,9 @@ def cell_centres_vols(face_geo: FaceGeometry, td) -> Tuple[torch.Tensor,
     (:func:`smoothmesh_torch.device.pack_cell_faces`), not ``owner``,
     ``cell_faces`` and ``cell_faces_mask``."""
     dev = face_geo.centres.device
-    if dev.type == "cpu":
+    if not kernels.takes_kernel(dev, face_geo.centres.dtype,
+                                "cell_centres_vols"):
         return cell_centres_vols_plain(face_geo, td)
-    if dev.type != "cuda":
-        raise ValueError(f"cell_centres_vols: no kernel for {dev}")
     words = td["cell_face_words"]
     n_cells, width = words.shape
     n_faces = face_geo.centres.shape[0]

@@ -203,7 +203,6 @@ class Graph:
     place."""
 
     def __init__(self, fn):
-        build_all()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -225,6 +224,27 @@ class Graph:
 def reset_launches() -> None:
     for k in ALL:
         k.launches = 0
+
+
+def takes_kernel(device, dtype, name: str = "kernel") -> bool:
+    """Whether a wrapper named ``name`` launches its kernel for
+    coordinates of ``dtype`` on ``device``, decided before any launch:
+    on the CPU never (the plain version runs); on ``cuda`` for float32
+    (the kernel runs, or its checks and launch raise), not for float64
+    (the plain version runs on the card, as the JAX package runs
+    float64 through XLA and never through Pallas); another dtype on
+    ``cuda`` raises ``TypeError`` and another device ``ValueError``."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {device}")
+    if dtype == torch.float32:
+        return True
+    if dtype == torch.float64:
+        return False
+    raise TypeError(f"{name}: {dtype} on {device}: the CUDA kernels take "
+                    "float32, their plain versions float64")
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,

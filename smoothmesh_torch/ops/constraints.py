@@ -10,15 +10,17 @@ src/smoothMesh.C:2384-2392).  The first two are the reference's
 clamped-acos formulation; :func:`freeze_constraints` is the fused stage
 the driver calls, which compares clamped cosines instead (acos is
 strictly decreasing, so every angle comparison maps to the reversed
-cosine comparison): the plain version for CPU tensors, the hand-written
-kernel ``csrc/freeze.cu`` (K4, float32) for CUDA tensors.
+cosine comparison): the hand-written kernel ``csrc/freeze.cu`` (K4) for
+float32 CUDA tensors, the plain version for CPU tensors and float64
+CUDA tensors (``kernels.takes_kernel``).
 
 The face-angle constraint mirrors ``smoothmesh_tpu.ops.constraints``:
 the plain per-edge pass (``face_angles_for_edges``,
 ``current_face_angles_per_point``), the current per-point angles in the
 tile engine's u encoding (:func:`face_angles_per_point`: kernels
 ``csrc/face_angles.cu`` = K5 and ``csrc/point_face_angles.cu`` = K6 on
-CUDA tensors, their plain versions on CPU tensors), and the fixed point
+float32 CUDA tensors, their plain versions on CPU tensors and float64
+CUDA tensors), and the fixed point
 :func:`restrict_face_angle_deterioration`, which is plain PyTorch as
 its JAX counterpart is plain XLA.
 """
@@ -152,12 +154,10 @@ def freeze_constraints(points, proposed, td, min_edge_length,
     (:func:`smoothmesh_torch.device.pack_wedges`), not ``wedge_prev``,
     ``wedge_next`` and ``point_faces_mask``."""
     dev = points.device
-    if dev.type == "cpu":
+    if not kernels.takes_kernel(dev, points.dtype, "freeze_constraints"):
         return freeze_constraints_plain(
             points, proposed, td, min_edge_length, total_min_freeze,
             min_angle_rad, edge_angle_constraint, frozen)
-    if dev.type != "cuda":
-        raise ValueError(f"freeze_constraints: no kernel for {dev}")
     n = points.shape[0]
     pp, ppm = td["point_points"], td["point_points_mask"]
     words = td["wedge_words"]
@@ -319,10 +319,8 @@ def edge_face_angles(points, means, cell_ctrs, td):
     (:func:`smoothmesh_torch.device.pack_edge_cells`), not
     ``edge_cell_f0``, ``edge_cell_f1`` and ``edge_cells_mask``."""
     dev = points.device
-    if dev.type == "cpu":
+    if not kernels.takes_kernel(dev, points.dtype, "edge_face_angles"):
         return edge_face_angles_plain(points, means, cell_ctrs, td)
-    if dev.type != "cuda":
-        raise ValueError(f"edge_face_angles: no kernel for {dev}")
     edges, ef, ec = td["edges"], td["edge_faces"], td["edge_cells"]
     words = td["edge_cell_words"]
     n_edges, wf = ef.shape
@@ -346,10 +344,8 @@ def edge_face_angles(points, means, cell_ctrs, td):
 def point_face_angles(edge_u, td):
     """Per-point min/max of the per-edge u values (K6): -> (N, 2)."""
     dev = edge_u.device
-    if dev.type == "cpu":
+    if not kernels.takes_kernel(dev, edge_u.dtype, "point_face_angles"):
         return point_face_angles_plain(edge_u, td)
-    if dev.type != "cuda":
-        raise ValueError(f"point_face_angles: no kernel for {dev}")
     pe, pm = td["point_edges"], td["point_edges_mask"]
     n, we = pe.shape
     kernels.check(edge_u, "edge_u", torch.float32, (td["edges"].shape[0], 2),
@@ -364,8 +360,9 @@ def point_face_angles(edge_u, td):
 
 def face_angles_per_point(points, means, cell_ctrs, td):
     """Current per-point min/max face angles in u space, from the face
-    vertex means (K1) and the cell centres (K2): K5 then K6 on CUDA
-    tensors, their plain versions on CPU tensors -> (u_min, u_max)."""
+    vertex means (K1) and the cell centres (K2): K5 then K6 on float32
+    CUDA tensors, their plain versions on CPU tensors and float64 CUDA
+    tensors -> (u_min, u_max)."""
     up = point_face_angles(edge_face_angles(points, means, cell_ctrs, td),
                            td)
     return up[:, 0], up[:, 1]

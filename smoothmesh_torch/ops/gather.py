@@ -2,10 +2,10 @@
 
 ``table_gather(x, table, mask)`` gathers the rows of ``x`` (N, C) named
 by a padded int32 ``table`` (n, W) into (n, W, C); slots whose ``mask``
-is False are 0.  On CPU tensors it runs its plain PyTorch version
-(:func:`table_gather_plain`, any float dtype); on CUDA tensors it
-launches the hand-written kernel ``csrc/gather.cu`` (float32) or
-raises.  :func:`tiled_gather` is the counterpart of the JAX package's
+is False are 0.  On float32 CUDA tensors it launches the hand-written
+kernel ``csrc/gather.cu`` or raises; on CPU tensors (any float dtype)
+and float64 CUDA tensors it runs its plain PyTorch version
+(:func:`table_gather_plain`; ``kernels.takes_kernel``).  :func:`tiled_gather` is the counterpart of the JAX package's
 standalone select-engine gather (``smoothmesh_tpu/ops/tiled.py:551``),
 on the topology's padded table instead of the TPU's pools and codes.
 
@@ -31,10 +31,8 @@ def table_gather_plain(x, table, mask):
 def table_gather(x, table, mask):
     """``x[table]`` with masked slots 0 (K7) -> (n, W, C)."""
     dev = x.device
-    if dev.type == "cpu":
+    if not kernels.takes_kernel(dev, x.dtype, "table_gather"):
         return table_gather_plain(x, table, mask)
-    if dev.type != "cuda":
-        raise ValueError(f"table_gather: no kernel for {dev}")
     n, width = table.shape
     kernels.check(x, "x", torch.float32, (x.shape[0], x.shape[-1]), dev)
     kernels.check(table, "table", torch.int32, (n, width), dev)

@@ -10,9 +10,9 @@ reference's octree ``findLine`` (src/boundaryPointSmoothing.C:682-744).
   - :func:`segment_triangle_hits_plain`: plain PyTorch in K8's order of
     operations, any float dtype, in chunks of rays so that its
     (rays x triangles) intermediates stay near 1 GB;
-  - :func:`segment_triangle_hits`: the wrapper: the plain version for
-    CPU tensors, the hand-written kernel ``csrc/raycast.cu`` (K8,
-    float32) for CUDA tensors;
+  - :func:`segment_triangle_hits`: the wrapper: the hand-written
+    kernel ``csrc/raycast.cu`` (K8) for float32 CUDA tensors, the plain
+    version for CPU tensors and float64 CUDA tensors;
   - :func:`launch_geometry`: K8's grid of (ray blocks x triangle
     slices), from the card's SM count.
 
@@ -140,11 +140,9 @@ def segment_triangle_hits_plain(orig, direction, max_dist: float,
 def segment_triangle_hits(orig, direction, max_dist: float, tri_packed):
     """The ray cast (K8): -> (t_pos (B,), t_neg (B,)), +inf where none."""
     dev = orig.device
-    if dev.type == "cpu":
+    if not kernels.takes_kernel(dev, orig.dtype, "segment_triangle_hits"):
         return segment_triangle_hits_plain(orig, direction, max_dist,
                                            tri_packed)
-    if dev.type != "cuda":
-        raise ValueError(f"segment_triangle_hits: no kernel for {dev}")
     n_rays, n_tri = orig.shape[0], tri_packed.shape[1]
     kernels.check(orig, "orig", torch.float32, (n_rays, 3), dev)
     kernels.check(direction, "direction", torch.float32, (n_rays, 3), dev)

@@ -8,8 +8,9 @@
 
 The functions below are plain PyTorch over the padded device topology
 (masked gathers + reductions).  :func:`predictor` is the fused stage
-the driver calls: the plain chain for CPU tensors, the hand-written
-kernel ``csrc/predictor.cu`` (K3, float32) for CUDA tensors.
+the driver calls: the hand-written kernel ``csrc/predictor.cu`` (K3)
+for float32 CUDA tensors, the plain chain for CPU tensors and float64
+CUDA tensors (``kernels.takes_kernel``).
 """
 
 from __future__ import annotations
@@ -288,11 +289,9 @@ def predict_shared_rows(prop, points, cell_ctrs, td, max_step,
 def predictor(points, cell_ctrs, td, max_step, rel_step_frac, do_boundary):
     """The fused predictor stage (K3): -> (proposal (N, 3), curmin (N,))."""
     dev = points.device
-    if dev.type == "cpu":
+    if not kernels.takes_kernel(dev, points.dtype, "predictor"):
         return predictor_plain(points, cell_ctrs, td, max_step,
                                rel_step_frac, do_boundary)
-    if dev.type != "cuda":
-        raise ValueError(f"predictor: no kernel for {dev}")
     n = points.shape[0]
     pc, pcm = td["point_cells"], td["point_cells_mask"]
     pp, ppm = td["point_points"], td["point_points_mask"]

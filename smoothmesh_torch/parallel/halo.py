@@ -42,9 +42,8 @@ from smoothmesh_torch.parallel.sync import DistSync, UnionSync
 from smoothmesh_torch.parallel.union import (UnionSmoother, _pad_rows,
                                              common_widths, pad_topology)
 from smoothmesh_torch.parallel.union import union_topology  # noqa: F401
-from smoothmesh_torch.quality import (CUDA_QUALITY_TD_KEYS, QUALITY_TD_KEYS,
-                                      combine_quality_parts,
-                                      quality_report_parts)
+from smoothmesh_torch.quality import (combine_quality_parts,
+                                      quality_report_parts, quality_td_keys)
 
 KB = 2048   # entity-count rounding of the padded shards (the JAX package's)
 
@@ -273,9 +272,7 @@ class HaloSmoother(UnionSmoother):
         """The global quality report, from the entities each shard
         claims (each face, edge and cell once, from a shard whose local
         closure of it is complete), with no global topology."""
-        keys = (CUDA_QUALITY_TD_KEYS if self.device.type == "cuda"
-                else QUALITY_TD_KEYS)
-        missing = keys - set(self.td)
+        missing = quality_td_keys(self.device, self.dtype) - set(self.td)
         if missing:
             from smoothmesh_torch.device import to_device
 

@@ -22,8 +22,7 @@ from smoothmesh_torch.mesh.topology import compile_topology
 from smoothmesh_torch.parallel.partition import ShardedMesh, build_shards
 from smoothmesh_torch.parallel.sync import DistPointSync, UnionPointSync
 from smoothmesh_torch.parallel.union import UnionSmoother
-from smoothmesh_torch.quality import (CUDA_QUALITY_TD_KEYS, QUALITY_TD_KEYS,
-                                      quality_report)
+from smoothmesh_torch.quality import quality_report, quality_td_keys
 
 
 class ShardedSmoother(UnionSmoother):
@@ -69,10 +68,9 @@ class ShardedSmoother(UnionSmoother):
         volume-valued metrics in external units, on the global topology,
         compiled and staged at the first call."""
         if self._report_td is None:
-            keys = (CUDA_QUALITY_TD_KEYS if self.device.type == "cuda"
-                    else QUALITY_TD_KEYS)
-            self._report_td = to_device(compile_topology(self.mesh),
-                                        self.device, keys)
+            self._report_td = to_device(
+                compile_topology(self.mesh), self.device,
+                quality_td_keys(self.device, self.dtype))
         q = self.points.detach().to("cpu", torch.float64).numpy()
         pts = self._tensor(self.to_external_point_field(q), self.dtype)
         return self._external_units(quality_report(pts, self._report_td))

@@ -9,11 +9,11 @@ semantics).  It also holds the reference's mesh stats (min/max edge
 length + bounding-box perimeter, src/smoothMesh.C:1478-1541) behind the
 derived parameter defaults, computed on the host with numpy.
 
-The report runs in the points' dtype on their device.  On the card the
-face and cell geometry run K1 and K2, and the per-cell rows of face
-data (area vectors and magnitudes over ``cell_faces``) are gathered
-through K7 (:func:`smoothmesh_torch.ops.gather.table_gather`); the rest
-is plain PyTorch.
+The report runs in the points' dtype on their device.  On the card in
+float32 the face and cell geometry run K1 and K2, and the per-cell rows
+of face data (area vectors and magnitudes over ``cell_faces``) are
+gathered through K7 (:func:`smoothmesh_torch.ops.gather.table_gather`);
+in float64 their plain versions run there; the rest is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from smoothmesh_torch import geometry as geo
+from smoothmesh_torch import kernels
 from smoothmesh_torch.ops.constraints import EVAL_CHUNK, face_angles_for_edges
 from smoothmesh_torch.ops.gather import table_gather
 
@@ -42,6 +43,15 @@ QUALITY_TD_KEYS = frozenset({
 #: (``device.pack_cell_faces``); the rest of the report reads owner,
 #: cell_faces and cell_faces_mask as on the CPU
 CUDA_QUALITY_TD_KEYS = QUALITY_TD_KEYS | {"cell_face_words"}
+
+
+def quality_td_keys(device, dtype) -> frozenset:
+    """The tables the report reads for points of ``dtype`` on
+    ``device``: K2's words where its kernel launches (float32 on the
+    card), else the plain versions' tables."""
+    return (CUDA_QUALITY_TD_KEYS
+            if kernels.takes_kernel(device, dtype, "quality_report")
+            else QUALITY_TD_KEYS)
 
 
 @dataclasses.dataclass

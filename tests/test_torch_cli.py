@@ -20,8 +20,11 @@ its border ring as ``initEdges.obj`` and the shrunk ring as
   CPU (one shard, the plain CLI's points to 1e-12) and in 2 gloo ranks
   started as ``torchrun`` starts them (rank 0 writes
   ``ShardedSmoother(n_shards=2)``'s points, bit for bit);
-- a float64 run on the card is refused rather than cast, and without
-  ``-device`` a machine with no card raises.
+- without ``-device`` a machine with no card raises; with a card a
+  float64 run is accepted and stages the plain versions' tables (the
+  kernels take float32 only, so float64 runs their plain versions on
+  the card), and a dtype the CLI does not know is refused before
+  anything reaches the card.
 """
 
 import os
@@ -31,7 +34,7 @@ import pytest
 import torch
 
 from smoothmesh_tpu import cli as jax_cli
-from smoothmesh_torch import cli
+from smoothmesh_torch import cli, driver
 from smoothmesh_torch import testcases as tcs
 from smoothmesh_torch.driver import Smoother
 from smoothmesh_torch.io.case import FoamCase
@@ -251,9 +254,25 @@ def test_no_card_raises_and_float64_on_card_is_refused(tmp_path, capsys,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["-case", root, "-centroidalIters", "1"])
-    # with a card, float64 is refused before anything reaches it
+    # with a card, float64 is accepted: the smoother stages the plain
+    # versions' tables on it (stopped there, as no card is present)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    rc = cli.main(["-case", root, "-dtype", "float64",
+    staged = []
+
+    class Staged(Exception):
+        pass
+
+    def stage(topo, device=None, keys=None):
+        staged.append((torch.device(device).type, frozenset(keys)))
+        raise Staged
+
+    monkeypatch.setattr(driver, "to_device", stage)
+    with pytest.raises(Staged):
+        cli.main(["-case", root, "-dtype", "float64",
+                  "-centroidalIters", "1"])
+    assert staged == [("cuda", driver.TD_KEYS)]
+    # a dtype the card does not run is refused before anything reaches it
+    rc = cli.main(["-case", root, "-dtype", "float16",
                    "-centroidalIters", "1"])
     assert rc != 0
     assert "float32" in capsys.readouterr().err
