@@ -171,10 +171,30 @@ Phases, each fatal on failure:
      (exit 0); no kernel launched in any float64 run of the phase
      (launch and capture counts); then a float32 step() launching K1-K6
      once each and a float16 smoother on cuda raising TypeError;
+  12. (before the record) the decompositions one rank a card over NCCL
+     (smoothmesh_torch.parallel.ranks.join: NCCL on cuda, rank r on
+     cuda:r): the NCCL version, whether torch has NCCL and the card
+     count; at world 1 on cuda:0 (run_ranks(..., backend "nccl")) the
+     halo and the disjoint decomposition at 128^3 with the default
+     parameters, steps(32), and the halo's 32^3 boundary configuration
+     (max step 0.25, 8 iterations, K8), each against the same class
+     with one shard in this process (UnionSync / UnionPointSync):
+     results, points and denormalize() bit-equal, quality() within
+     1e-12 relative, every kernel of the run launched in the rank (K1-K6
+     every iteration, K7 in the report, K8 in the boundary run), the
+     ms/iteration of both forms; one NCCL rank more than there are cards
+     refused in join before any collective, with a message naming both
+     numbers; the CLI under torchrun's environment (RANK 0, WORLD_SIZE 1,
+     LOCAL_RANK 0, a free MASTER_PORT) with -device cuda -parallel in a
+     subprocess: exit 0, NCCL in its log, the written points equal to
+     the in-process -parallel's at one shard; with two cards or more,
+     two NCCL ranks on two cards at 128^3 against HaloSmoother with 2
+     shards on one card (bit-equal; the report within Q_REL_TOL, its
+     parts summed in another order), else a line saying it was not run;
   8. one JSON line of the halo's figures, one of the disjoint
-     decomposition's, one of phase 11's, one of the kernels (with the
-     halo's and the disjoint decomposition's launches), then the last
-     line
+     decomposition's, one of phase 11's, one of phase 12's, one of the
+     kernels (with the halo's, the disjoint decomposition's and the
+     NCCL ranks' launches), then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without
@@ -279,6 +299,8 @@ DIST_WORLD = 2
 #: the freezes off, against the single device
 SHARDED_SHARDS = 4
 SHARDED_ITERS = 8
+NCCL_QUALITY_REL = 1e-12      # a rank's report against the union's
+NCCL_TIMEOUT_S = 300
 #: phase 11: float64 on the card (the plain versions, no kernel): the
 #: iterations of the 32^3 runs against the CPU and of the 64^3
 #: decompositions against the single device; the card against the CPU:
@@ -1642,8 +1664,8 @@ def halo_phase(mesh, mesh_int, topo, orders, smi: str) -> dict:
     want = [dataclasses.astuple(r) for r in hu.steps(SMALL_ITERS)]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        ranks = run_ranks(Job(small, dparams, SMALL_ITERS), DIST_WORLD, tmp,
-                          timeout_s=300)
+        ranks = run_ranks(Job(small, dparams, SMALL_ITERS, backend="gloo"),
+                          DIST_WORLD, tmp, timeout_s=300)
         t_dist = time.perf_counter() - t0
     base = hu.union.base[:, 0]
     for rank, r in enumerate(ranks):
@@ -1944,8 +1966,8 @@ def sharded_phase(mesh, mesh_int, topo, orders, smi: str,
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         ranks = run_ranks(Job(small, dparams, SMALL_ITERS,
-                              decomposition="disjoint"), DIST_WORLD, tmp,
-                          timeout_s=300)
+                              decomposition="disjoint", backend="gloo"),
+                          DIST_WORLD, tmp, timeout_s=300)
         t_dist = time.perf_counter() - t0
     base = su.union.base[:, 0]
     for rank, r in enumerate(ranks):
@@ -2340,6 +2362,292 @@ def float64_phase(mesh_int, topo, steps32, smi: str) -> dict:
           f"each, K7 and K8 none; float16 on cuda: TypeError({refused!r})",
           flush=True)
     out["decompositions_float32"] = decompositions(torch.float32)
+    return out
+
+
+def quality_worst_rel(got: dict, want: dict) -> float:
+    """The largest relative difference between two quality reports (0
+    where every value is equal)."""
+    worst = 0.0
+    for k, b in want.items():
+        a = got[k]
+        if a != b:
+            worst = max(worst, abs(a - b) / abs(b) if b else math.inf)
+    return worst
+
+
+def start_ranks(pool, mesh, params, n: int, geometry, job_kw: dict,
+                world: int, workdir: str, device: str = "cuda"):
+    """Phase 12: ``world`` ranks (``run_ranks``; under NCCL on ``cuda``,
+    rank r on cuda:r; gloo on the CPU, a rehearsal) running ``n`` steps,
+    started in ``pool`` -> the future of their outputs."""
+    from smoothmesh_torch.parallel.ranks import Job, run_ranks
+
+    job = Job(mesh, params, n, device=device, geometry=geometry,
+              backend="nccl" if device == "cuda" else "gloo", **job_kw)
+    return pool.submit(run_ranks, job, world, workdir, NCCL_TIMEOUT_S)
+
+
+def prepared_union(cls, mesh, params, world: int, geometry,
+                   device: str = "cuda"):
+    """Phase 12: ``cls`` with ``world`` shards in this process, its batch
+    captured -> (the smoother, the seconds of its set-up)."""
+    t0 = time.perf_counter()
+    un = cls(mesh, params, n_shards=world, device=device)
+    if geometry is not None:
+        un.enable_boundary_smoothing(*geometry)
+    un.prepare_batch()
+    return un, time.perf_counter() - t0
+
+
+def held_against_union(label: str, ranks, un, n: int, boundary: bool,
+                       smi: str, device: str = "cuda") -> dict:
+    """Phase 12: the ranks' outputs (``start_ranks``, ended) against the
+    union ``un`` (``prepared_union``), which steps ``n`` times now, with
+    no rank running.  Required: each rank under NCCL on its own card,
+    the results and each rank's union rows bit-equal, ``denormalize()``
+    bit-equal, ``quality()`` within 1e-12 relative at world 1 (within
+    Q_REL_TOL above it, where the ranks' parts are summed in another
+    order, in float32), every kernel of the run launched in rank 0
+    (K1-K6 n times or more, K7 for the report, K8 n times with boundary
+    smoothing) -> the figures, with rank 0's launches.  On the CPU (a
+    rehearsal under gloo) no launch is required."""
+    from smoothmesh_torch import kernels
+
+    on_card = device == "cuda"
+    backend = "nccl" if on_card else "gloo"
+    world = len(ranks)
+    results = un.steps(n)
+    want = [dataclasses.astuple(r) for r in results]
+    den, rep = un.denormalize(), un.quality()
+    base = un.union.base[:, 0]
+    worst = 0.0
+    q_tol = NCCL_QUALITY_REL if world == 1 else Q_REL_TOL
+    for rank, r in enumerate(ranks):
+        where = f"{label}, {backend} rank {rank} of {world}"
+        card = f"cuda:{rank}" if on_card else "cpu"
+        require(r["backend"] == backend and r["device"] == card,
+                f"{where}: ran under {r['backend']} on {r['device']}")
+        require([x[:3] + x[4:] for x in r["results"]]
+                == [x[:3] + x[4:] for x in want],
+                f"{where}: results differ from the union's")
+        require(torch.equal(r["points"],
+                            un.points[base[rank]:base[rank + 1]].cpu()),
+                f"{where}: points not bit-equal to the union's")
+        require(np.array_equal(r["denormalized"], den),
+                f"{where}: denormalize() not bit-equal")
+        w = quality_worst_rel(r["quality"], rep)
+        require(w <= q_tol, f"{where}: quality() {w:.3g} relative from "
+                f"the union's (at most {q_tol})")
+        worst = max(worst, w)
+    launched = ranks[0]["launches"]
+    want_n = {k.name: n for k in kernels.ALL[:6]}
+    want_n[kernels.TABLE_GATHER.name] = 1
+    if boundary:
+        want_n[kernels.RAYCAST.name] = n
+    for name, m in want_n.items():
+        require(launched[name] >= m or not on_card, f"{label}: {name} "
+                f"launched {launched[name]} times in rank 0, expected {m}")
+    # a batch's wall over its iterations: the first batch of a rank
+    # also holds its first calls (the NCCL communicator, the kernels'
+    # libraries loaded), the last one is the steady state
+    walls = [x[3] for x in ranks[0]["results"]]
+    fig = dict(world=world, ms_first_batch_ranks=walls[0],
+               ms_last_batch_ranks=walls[-1],
+               ms_last_batch_union=results[-1].wall_ms,
+               quality_worst_rel=worst,
+               rank0_setup_s=ranks[0]["setup_times"],
+               launches_rank0=launched)
+    print(f"{label}, {world} {backend} rank(s) on {device} against "
+          f"{type(un).__name__}(n_shards={world}) in this process: "
+          f"results, points and denormalize() bit-equal, quality() within "
+          f"{worst:.3g} relative; {n} iterations in batches of "
+          f"{un.iter_batch}: {walls[-1]:.3f} ms/iteration in the ranks' "
+          f"last batch (eager: the exchanges are not captured; the first "
+          f"batch, with the rank's first calls, {walls[0]:.3f}), "
+          f"{results[-1].wall_ms:.3f} in this process (graph replays); "
+          f"rank 0 launched {launched} on {smi}", flush=True)
+    return fig
+
+
+def ranks_against_union(label: str, cls, mesh, params, n: int, geometry,
+                        job_kw: dict, world: int, workdir: str, pool,
+                        smi: str, device: str = "cuda") -> dict:
+    """``start_ranks``, ``prepared_union`` meanwhile, then
+    ``held_against_union``."""
+    fut = start_ranks(pool, mesh, params, n, geometry, job_kw, world,
+                      workdir, device)
+    un, _ = prepared_union(cls, mesh, params, world, geometry, device)
+    return held_against_union(label, fut.result(), un, n,
+                              geometry is not None, smi, device)
+
+
+def nccl_refusal(mesh, n_cards: int, workdir: str) -> str:
+    """Phase 12: one NCCL rank more than there are cards -> the
+    refusal's message.  ``run_ranks`` must raise, each rank failing in
+    ``join`` before it joins the group, with a message that names the
+    ranks and the cards."""
+    from smoothmesh_torch.parallel.ranks import Job, run_ranks
+    from smoothmesh_torch.params import SmoothingParams
+
+    world = n_cards + 1
+    try:
+        run_ranks(Job(mesh, SmoothingParams(centroidal_iters=1), 1,
+                      backend="nccl"), world, workdir, timeout_s=120)
+    except RuntimeError as e:
+        msg = str(e)
+    else:
+        raise RuntimeError(f"chip_smoke: {world} NCCL ranks on {n_cards} "
+                           "card(s) ran; they must be refused")
+    require(f"{world} NCCL ranks on this machine need a card each, and it "
+            f"has {n_cards} card(s)" in msg and "in join" in msg,
+            f"the refusal of {world} NCCL ranks: {msg[-800:]}")
+    return msg.strip().splitlines()[-1]
+
+
+def nccl_cli(mesh, workdir: str, device: str = "cuda") -> dict:
+    """Phase 12: the CLI under torchrun's environment (RANK 0,
+    WORLD_SIZE 1, LOCAL_RANK 0, MASTER_ADDR localhost, a free
+    MASTER_PORT) with -device cuda -parallel, in a subprocess, against
+    the in-process -parallel at one shard on the same case: exit 0,
+    NCCL named in its log, the written points equal.  ``device="cpu"``
+    rehearses it under gloo on the CPU."""
+    import socket
+    import unittest.mock
+
+    from smoothmesh_torch import cli
+    from smoothmesh_torch.io.case import FoamCase
+
+    roots = [os.path.join(workdir, name) for name in ("torchrun", "one")]
+    for root in roots:
+        write_case(root, mesh)
+    args = ["-parallel", "-device", device, "-centroidalIters",
+            str(SMALL_ITERS), "-writeFormat", "binary"]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port), PYTHONPATH=here)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "smoothmesh_torch.cli", "-case", roots[0],
+         *args], env=env, cwd=here, capture_output=True, text=True,
+        timeout=NCCL_TIMEOUT_S)
+    t_sub = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    require(proc.returncode == 0,
+            f"the CLI under torchrun's environment exited with "
+            f"{proc.returncode}: {log[-1500:]}")
+    line = ("Running sharded over 1 shards (torch.distributed ranks, "
+            + ("nccl)" if device == "cuda" else "gloo)"))
+    require(line in log, f"the CLI under torchrun's environment: no "
+            f"'{line}' in {log[-800:]}")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text), unittest.mock.patch.object(
+            torch.cuda, "device_count", return_value=1):
+        rc = cli.main(["-case", roots[1], *args])
+    require(rc == 0 and "Running sharded over 1 shards (one process on "
+            f"{device})" in text.getvalue(),
+            f"the in-process -parallel at one shard: {rc}, "
+            f"{text.getvalue()[-400:]}")
+    got, want = (FoamCase(r).read_mesh(float(SMALL_ITERS)).points
+                 for r in roots)
+    require(got.shape == (mesh.n_points, 3) and np.array_equal(got, want),
+            "the CLI under torchrun's environment wrote other points than "
+            "the in-process -parallel")
+    print(f"CLI -device {device} -parallel under torchrun's environment "
+          f"(RANK 0, WORLD_SIZE 1, LOCAL_RANK 0): exit 0 in {t_sub:.1f} s "
+          f"with its start-up, '{line}', the {mesh.n_points} written points "
+          f"equal to the in-process -parallel's at one shard", flush=True)
+    return dict(subprocess_s=t_sub)
+
+
+def nccl_phase(mesh, smi: str, device: str = "cuda") -> dict:
+    """Phase 12: the decompositions one rank a card over NCCL -> the
+    figures and the launches of the world-1 runs' rank 0, summed.
+    ``device="cpu"`` rehearses it under gloo on the CPU, the refusal
+    (which only NCCL makes) left out."""
+    import concurrent.futures
+
+    import torch.distributed as dist
+
+    from smoothmesh_torch import kernels
+    from smoothmesh_torch.parallel.halo import HaloSmoother
+    from smoothmesh_torch.parallel.sharded import ShardedSmoother
+    from smoothmesh_torch.params import SmoothingParams
+    from smoothmesh_torch.testcases import bench_dome_geometry
+
+    n_cards = torch.cuda.device_count()
+    version = ".".join(map(str, torch.cuda.nccl.version()))
+    print(f"NCCL {version}, torch.distributed.is_nccl_available() "
+          f"{dist.is_nccl_available()}, {n_cards} card(s): {smi}",
+          flush=True)
+    require(dist.is_nccl_available() or device == "cpu",
+            "this torch has no NCCL backend")
+    out = dict(nccl_version=version, cards=n_cards)
+    params = SmoothingParams(centroidal_iters=MAIN_ITERS, rel_tol=0.0)
+    small = bench_mesh(SMALL_SIDE)
+    bparams = dataclasses.replace(boundary_params(SMALL_ITERS),
+                                  max_step_length=SMALL_BND_MAX_STEP)
+    runs = (
+        (f"halo {MAIN_SIDE}^3", HaloSmoother, mesh, params, MAIN_ITERS,
+         None, {}),
+        (f"disjoint {MAIN_SIDE}^3", ShardedSmoother, mesh, params,
+         MAIN_ITERS, None, dict(decomposition="disjoint")),
+        (f"halo {SMALL_SIDE}^3 boundary", HaloSmoother, small, bparams,
+         SMALL_ITERS, bench_dome_geometry()[1:], {}))
+    launches = {k: 0 for k in kernels.ALL}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp, \
+            concurrent.futures.ThreadPoolExecutor(4) as pool:
+        # the refusal needs no card time: it runs beside the first run
+        if device == "cuda":
+            refusal = pool.submit(nccl_refusal, small, n_cards,
+                                  os.path.join(tmp, "refusal"))
+
+        def start(i):
+            _, _, m, prm, n, geom, kw = runs[i]
+            return start_ranks(pool, m, prm, n, geom, kw, 1,
+                               os.path.join(tmp, f"run{i}"), device)
+
+        # each run's ranks start before its union is set up here, and
+        # the next run's when this one's union is set up: the host
+        # builds overlap, and a rank steps while the next one builds
+        # (on the host), never beside another run's steps
+        futs = {0: start(0)}
+        for i, (label, cls, m, prm, n, geom, _) in enumerate(runs):
+            wall_clock(f"phase 12: {label}, world 1")
+            un, t_setup = prepared_union(cls, m, prm, 1, geom, device)
+            if i + 1 < len(runs):
+                futs[i + 1] = start(i + 1)
+            ranks = futs[i].result()
+            fig = out[label] = held_against_union(
+                label, ranks, un, n, geom is not None, smi, device)
+            fig["union_setup_s"] = t_setup
+            del un
+            torch.cuda.empty_cache()
+            for k in kernels.ALL:
+                launches[k] += fig["launches_rank0"][k.name]
+        if device == "cuda":
+            wall_clock("phase 12: the refusal")
+            out["refusal"] = refusal.result()
+            print(f"{n_cards + 1} NCCL ranks on {n_cards} card(s) refused "
+                  f"before any collective: {out['refusal']}", flush=True)
+        wall_clock("phase 12: the CLI under torchrun's environment")
+        out["cli"] = nccl_cli(small, os.path.join(tmp, "cli"), device)
+        if n_cards >= 2:
+            wall_clock("phase 12: two cards")
+            out["two_cards"] = ranks_against_union(
+                f"halo {MAIN_SIDE}^3", HaloSmoother, mesh, params,
+                MAIN_ITERS, None, {}, 2, os.path.join(tmp, "two"), pool,
+                smi)
+        else:
+            out["two_cards"] = None
+            print("two NCCL ranks on two cards: not run, this machine has "
+                  f"{n_cards} card (NCCL refuses two ranks on one card)",
+                  flush=True)
+    out["launches"] = launches
     return out
 
 
@@ -2839,6 +3147,11 @@ def main() -> int:
     # -- 11. float64 on the card ---------------------------------------------
     float64 = float64_phase(mesh_int, topo, steps, smi)
 
+    wall_clock("phase 12")
+    # -- 12. the decompositions one rank a card over NCCL --------------------
+    torch.cuda.empty_cache()
+    nccl = nccl_phase(mesh, smi)
+
     wall_clock("phase 8")
     # -- 8. the record ----------------------------------------------------
     main_path = {kernels.RAYCAST: bnd["launches"],
@@ -2850,6 +3163,7 @@ def main() -> int:
         results[k]["launches_cli"] = cli["launches"][k]
         results[k]["launches_halo"] = halo["launches"][k]
         results[k]["launches_sharded"] = sharded["launches"][k]
+        results[k]["launches_nccl"] = nccl["launches"][k]
     for k in (kernels.FACE_GEOMETRY, kernels.CELL_CENTRES, kernels.FREEZE,
               kernels.FACE_ANGLES):
         results[k]["small_runs_exact"] = small_exact
@@ -2861,6 +3175,8 @@ def main() -> int:
     print(json.dumps({"sharded": {k: v for k, v in sharded.items()
                                   if k != "launches"}}))
     print(json.dumps({"float64": float64}))
+    print(json.dumps({"nccl": {k: v for k, v in nccl.items()
+                               if k != "launches"}}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -18,9 +18,10 @@ runs XLA on its device and no Pallas kernel.
 (``parallel.sharded.ShardedSmoother``), as the JAX CLI does, over all
 the shards available (:func:`parallel_shards`): one a rank where the
 process is a ``torch.distributed`` rank (``torchrun --nproc-per-node
-N``: gloo, the ranks share the current card; rank 0 prints and
-writes), else one a CUDA device on ``cuda``, all in this process on
-the first card, else one on ``cpu``.
+N``: on ``cuda`` NCCL, each rank on its own card ``cuda:LOCAL_RANK``;
+on ``cpu`` gloo; rank 0 prints and writes), else one a CUDA device on
+``cuda``, all in this process on the first card, else one on
+``cpu``.
 
 Patch list options accept the reference syntax: a bare word
 (``-layerPatches walls``) or a parenthesized list with regexes
@@ -75,8 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
     a("-overwrite", "--overwrite", action="store_true")
     a("-parallel", "--parallel", action="store_true",
       help="run the disjoint domain decomposition over all available "
-      "shards: the torch.distributed ranks (gloo), else the CUDA devices "
-      "(in this process, on the first card), else one")
+      "shards: the torch.distributed ranks (torchrun; NCCL on cuda, one "
+      "card a rank, gloo on cpu), else the CUDA devices (in this process, "
+      "on the first card), else one")
     a("-centroidalIters", "--centroidalIters", type=int, default=1000)
     a("-maxStepLength", "--maxStepLength", type=float, default=None)
     a("-relStepFrac", "--relStepFrac", type=float, default=0.5)
@@ -123,26 +125,31 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def parallel_shards(device: torch.device) -> Tuple[int, bool]:
-    """``-parallel``'s shard count and whether this process is one
-    ``torch.distributed`` rank of them: the world size where the
-    environment names this process's ``RANK`` and the ``WORLD_SIZE`` (as
-    ``torchrun`` does; the gloo process group is joined here at
-    ``MASTER_ADDR``:``MASTER_PORT`` unless it is already), else
+def parallel_shards(device: torch.device) -> Tuple[int, bool,
+                                                  torch.device]:
+    """``-parallel``'s shard count, whether this process is one
+    ``torch.distributed`` rank of them, and the device it runs on: the
+    world size where the environment names this process's ``RANK`` and
+    the ``WORLD_SIZE`` (as ``torchrun`` does; the process group is
+    joined here at ``MASTER_ADDR``:``MASTER_PORT`` unless it is
+    already, by ``parallel.ranks.join``'s rule: NCCL on the card
+    ``cuda:LOCAL_RANK`` on ``cuda``, gloo on ``cpu``), else
     ``torch.cuda.device_count()`` on ``cuda``, else 1."""
     import torch.distributed as dist
 
+    from smoothmesh_torch.parallel.ranks import join
+
     env = os.environ
-    if dist.is_initialized() or ("RANK" in env and "WORLD_SIZE" in env):
-        if not dist.is_initialized():
-            addr = env.get("MASTER_ADDR", "localhost")
-            dist.init_process_group(
-                "gloo", init_method=f"tcp://{addr}:{env['MASTER_PORT']}",
-                rank=int(env["RANK"]), world_size=int(env["WORLD_SIZE"]))
-        return dist.get_world_size(), True
+    if dist.is_initialized():
+        return dist.get_world_size(), True, device
+    if "RANK" in env and "WORLD_SIZE" in env:
+        addr = env.get("MASTER_ADDR", "localhost")
+        device = join(device, int(env["RANK"]), int(env["WORLD_SIZE"]),
+                      init_method=f"tcp://{addr}:{env['MASTER_PORT']}")
+        return dist.get_world_size(), True, device
     if device.type == "cuda":
-        return torch.cuda.device_count(), False
-    return 1, False
+        return torch.cuda.device_count(), False, device
+    return 1, False, device
 
 
 def main(argv: Sequence[str] = None) -> int:
@@ -158,7 +165,7 @@ def main(argv: Sequence[str] = None) -> int:
     import torch.distributed as dist
 
     joined = not dist.is_initialized()
-    n_shards, distributed = parallel_shards(device)
+    n_shards, distributed, device = parallel_shards(device)
     joined = joined and distributed
     try:
         if not distributed or dist.get_rank() == 0:
@@ -228,7 +235,8 @@ def _smooth(args, device: torch.device, n_shards, distributed: bool) -> int:
         else:
             from smoothmesh_torch.parallel.sharded import ShardedSmoother
 
-            how = ("torch.distributed ranks, gloo" if distributed
+            how = (f"torch.distributed ranks, "
+                   f"{torch.distributed.get_backend()}" if distributed
                    else f"one process on {device}")
             print(f"Running sharded over {n_shards} shards ({how})")
             smoother = ShardedSmoother(mesh, params, n_shards=n_shards,

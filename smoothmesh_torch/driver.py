@@ -352,7 +352,7 @@ class _Batch:
         if dev.type == "cuda" and capturable:
             if kernels.takes_kernel(dev, sm.dtype):
                 kernels.build_all()     # all at once, before the warm-up
-            self.graph = kernels.Graph(self._iteration)
+            self.graph = kernels.Graph(self._iteration, dev)
 
     def _iteration(self) -> None:
         done = self.done

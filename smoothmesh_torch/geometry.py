@@ -113,7 +113,8 @@ def face_centres_areas(points, face_points, face_mask,
            for _ in range(3)]
     kernels.FACE_GEOMETRY.launch(
         points.data_ptr(), face_points.data_ptr(), face_npoints.data_ptr(),
-        n_faces, width, *(t.data_ptr() for t in out))
+        n_faces, width, *(t.data_ptr() for t in out),
+        device=out[0].device)
     return FaceGeometry(*out)
 
 
@@ -176,7 +177,7 @@ def cell_centres_vols(face_geo: FaceGeometry, td) -> Tuple[torch.Tensor,
     kernels.CELL_CENTRES.launch(
         face_geo.centres.data_ptr(), face_geo.areas.data_ptr(),
         words.data_ptr(), n_cells, width, centres.data_ptr(),
-        vols.data_ptr())
+        vols.data_ptr(), device=centres.device)
     return centres, vols
 
 

@@ -7,13 +7,16 @@ so an edited source is rebuilt), and loaded with ``ctypes``.  Nothing is
 compiled or loaded at import time: the CPU tests import every module on
 machines with no ``nvcc`` and no card.
 
-Each C entry point launches on the stream it is given (PyTorch's
-current stream), allocates nothing, and returns ``cudaGetLastError()``;
-:meth:`Kernel.launch` raises if that is not 0 and otherwise adds one to
-the kernel's launch count.  A launch made while the stream is being
-captured into a CUDA graph (:class:`Graph`) runs nothing then: it is
-counted as captured, and each replay of the graph adds the launches it
-captured to the counts.
+Each C entry point launches on the stream it is given, allocates
+nothing, and returns ``cudaGetLastError()``.  :meth:`Kernel.launch`
+takes the device of the wrapper's tensors and launches under that
+device on its current stream (not on the current device's: with several
+cards a wrapper's tensors may lie on another); it raises if the entry
+point returned an error and otherwise adds one to the kernel's launch
+count.  A launch made while the stream is being captured into a CUDA
+graph (:class:`Graph`) runs nothing then: it is counted as captured,
+and each replay of the graph adds the launches it captured to the
+counts.
 
 Arithmetic: ``--fmad=false`` keeps ``a*b+c`` as two rounded operations,
 as the plain PyTorch versions compute it, so the kernels agree with
@@ -160,15 +163,17 @@ class Kernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Launch on PyTorch's current stream; raise on a CUDA error."""
+    def launch(self, *args, device: torch.device) -> None:
+        """Launch on ``device`` (the card of the tensors whose pointers
+        ``args`` holds), on its current stream; raise on a CUDA error."""
         fn = self.load()
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, stream)
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+            capturing = torch.cuda.is_current_stream_capturing()
         if err != 0:
             raise RuntimeError(
                 f"{self.name}: CUDA error {err} at launch")
-        if torch.cuda.is_current_stream_capturing():
+        if capturing:
             self.captured += 1
         else:
             self.launches += 1
@@ -193,30 +198,34 @@ def build_all() -> float:
 
 
 class Graph:
-    """``fn`` (which takes no arguments and works on tensors it holds)
-    captured once as a CUDA graph, after one eager warm-up call on a
-    side stream (so every kernel was built and loaded, and every lazy
-    first use done, before the capture).  :meth:`replay` launches the
-    captured work and adds the kernel launches the capture recorded to
-    their counts.  The graph reads and writes the tensors ``fn`` used,
-    at their addresses: the caller keeps them alive and fills them in
-    place."""
+    """``fn`` (which takes no arguments and works on tensors it holds on
+    ``device``) captured once as a CUDA graph on that device, after one
+    eager warm-up call on a side stream (so every kernel was built and
+    loaded, and every lazy first use done, before the capture).
+    :meth:`replay` launches the captured work and adds the kernel
+    launches the capture recorded to their counts.  The graph reads and
+    writes the tensors ``fn`` used, at their addresses: the caller keeps
+    them alive and fills them in place."""
 
-    def __init__(self, fn):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        for k in ALL:
-            k.captured = 0
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            fn()
+    def __init__(self, fn, device: torch.device):
+        self.device = torch.device(device)
+        with torch.cuda.device(self.device):
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                fn()
+            main.wait_stream(side)
+            for k in ALL:
+                k.captured = 0
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                fn()
         self.per_replay = {k: k.captured for k in ALL if k.captured}
 
     def replay(self) -> None:
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
         for k, n in self.per_replay.items():
             k.launches += n
 

@@ -176,7 +176,7 @@ def freeze_constraints(points, proposed, td, min_edge_length,
         ppm.data_ptr(), words.data_ptr(), frozen.data_ptr(), n, wp, wf,
         float(min_edge_length), int(bool(total_min_freeze)),
         math.cos(min_angle_rad), int(bool(edge_angle_constraint)),
-        out.data_ptr())
+        out.data_ptr(), device=out.device)
     return out
 
 
@@ -337,7 +337,7 @@ def edge_face_angles(points, means, cell_ctrs, td):
     kernels.FACE_ANGLES.launch(
         points.data_ptr(), means.data_ptr(), cell_ctrs.data_ptr(),
         edges.data_ptr(), ef.data_ptr(), ec.data_ptr(), words.data_ptr(),
-        n_edges, wf, wc, out.data_ptr())
+        n_edges, wf, wc, out.data_ptr(), device=out.device)
     return out
 
 
@@ -354,7 +354,8 @@ def point_face_angles(edge_u, td):
     kernels.check(pm, "point_edges_mask", torch.bool, (n, we), dev)
     out = torch.empty((n, 2), dtype=torch.float32, device=dev)
     kernels.POINT_FACE_ANGLES.launch(edge_u.data_ptr(), pe.data_ptr(),
-                                     pm.data_ptr(), n, we, out.data_ptr())
+                                     pm.data_ptr(), n, we, out.data_ptr(),
+                                     device=out.device)
     return out
 
 

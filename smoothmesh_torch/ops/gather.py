@@ -41,7 +41,7 @@ def table_gather(x, table, mask):
     out = torch.empty((n, width, c), dtype=torch.float32, device=dev)
     kernels.TABLE_GATHER.launch(x.data_ptr(), table.data_ptr(),
                                 mask.data_ptr(), n, width, c,
-                                out.data_ptr())
+                                out.data_ptr(), device=out.device)
     return out
 
 

@@ -156,5 +156,5 @@ def segment_triangle_hits(orig, direction, max_dist: float, tri_packed):
         orig.data_ptr(), direction.data_ptr(), tri_packed.data_ptr(),
         n_rays, n_tri, g.ray_blocks, g.slices, g.tris_per_slice,
         float(max_dist), EPS, bary, 1.0 + bary,
-        t_pos.data_ptr(), t_neg.data_ptr())
+        t_pos.data_ptr(), t_neg.data_ptr(), device=t_pos.device)
     return t_pos, t_neg

@@ -311,5 +311,5 @@ def predictor(points, cell_ctrs, td, max_step, rel_step_frac, do_boundary):
         points.data_ptr(), cell_ctrs.data_ptr(), pc.data_ptr(),
         pcm.data_ptr(), pp.data_ptr(), ppm.data_ptr(), intern.data_ptr(),
         n, wc, wp, float(max_step), float(rel_step_frac), int(do_boundary),
-        prop.data_ptr(), curmin.data_ptr())
+        prop.data_ptr(), curmin.data_ptr(), device=prop.device)
     return prop, curmin

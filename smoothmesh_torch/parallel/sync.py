@@ -33,8 +33,9 @@ Two implementations, and neither falls back to the other:
     the halo iteration into its CUDA graph as it does the single-device
     one.
   - :class:`DistSync`: one shard a rank over ``torch.distributed``
-    (gloo); each exchange is one ``all_reduce`` on an (S, ...) buffer of
-    the S shared points.
+    (NCCL, one card a rank, or gloo); each exchange is one
+    ``all_reduce`` on an (S, ...) buffer of the S shared points, on the
+    field's device.
 
 Both write the owner's value plus +0.0 (the JAX ``psum`` of the owner's
 value with the other shards' zeros), so a -0.0 arrives as +0.0 on every
@@ -106,12 +107,13 @@ class DistSync:
     ``slots``: (K,) their shared-point index in [0, S); ``owner``: (K,)
     bool, this shard owns the point.
 
-    Runs eagerly: every exchange is a collective the host waits for, so
-    the batched driver does not capture it into a CUDA graph.  It runs
-    on the default process group, whose backend must be gloo: gloo
-    reduces CUDA tensors through the host, so the ranks may share one
-    card.  NCCL is not supported: the halo smoother maps no rank to a
-    card of its own and gathers the global points on the host.
+    Runs on the default process group, NCCL (each rank on its own card,
+    the buffers never leave it) or gloo (on the CPU, or ranks sharing
+    a card: gloo reduces CUDA tensors through the host).  Eager: the
+    batched driver does not capture its collectives into a CUDA graph
+    (under NCCL they are asynchronous on the stream, so the host does
+    not wait for them).  With no shared point (S = 0, as at world 1)
+    no exchange reduces anything, on either backend.
     """
 
     capturable = False
@@ -129,7 +131,8 @@ class DistSync:
         own = self.owner.view((-1,) + (1,) * (v.dim() - 1))
         buf = src.new_zeros((self.n_slots,) + tuple(src.shape[1:]))
         buf.index_copy_(0, self.slots, torch.where(own, v, 0))
-        buf = _all_reduce(buf, "SUM")
+        if self.n_slots:
+            _all_reduce(buf, "SUM")
         out = src.index_copy(0, self.rows, buf.index_select(0, self.slots))
         return out.to(dtype)
 
@@ -138,7 +141,8 @@ class DistSync:
                           device=mask.device)
         buf.index_copy_(0, self.slots,
                         mask.index_select(0, self.rows).to(torch.int32))
-        buf = _all_reduce(buf, "MAX")
+        if self.n_slots:
+            _all_reduce(buf, "MAX")
         return mask.index_copy(0, self.rows,
                                (buf > 0).index_select(0, self.slots))
 
@@ -381,7 +385,7 @@ class UnionPointSync(_PointSync):
 
 class DistPointSync(_PointSync):
     """The disjoint exchanges of one shard a rank over
-    ``torch.distributed`` (gloo, as :class:`DistSync`).
+    ``torch.distributed`` (NCCL or gloo, as :class:`DistSync`).
 
     ``rows``, ``slots``, ``owner``: as :class:`UnionPointSync`'s, for
     this rank's shard ``rank``.  Each rank writes its own row of a

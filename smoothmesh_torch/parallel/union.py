@@ -12,8 +12,9 @@ the shards run in one of two ways:
     by its shard's base, so each kernel launches once an iteration over
     all the shards together, and the batched driver's CUDA graph
     carries the iteration with its exchanges;
-  - one shard a rank over ``torch.distributed`` (gloo): the union of
-    the rank's shard alone.
+  - one shard a rank over ``torch.distributed``: the union of the
+    rank's shard alone, on the rank's own card under NCCL
+    (``parallel.ranks.join``), on the CPU or a shared card under gloo.
 
 :class:`UnionSmoother` is the single-device ``Smoother`` on such a
 union, with the set-up the two decompositions share: the global layer
@@ -264,6 +265,25 @@ def union_topology(sh, shards: Optional[Sequence[int]] = None) -> ShardUnion:
 # The smoother
 # ---------------------------------------------------------------------------
 
+def _rank_device(device: torch.device) -> torch.device:
+    """The device of this rank's shard, under the initialized default
+    process group: ``device`` under gloo; under NCCL the rank's card
+    (the current device), which ``device`` must name or leave open."""
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    if backend == "gloo":
+        return device
+    if backend != "nccl":
+        raise ValueError(f"the shards' ranks run on nccl or gloo, not "
+                         f"{backend}")
+    card = torch.device("cuda", torch.cuda.current_device())
+    if device.type != "cuda" or device.index not in (None, card.index):
+        raise ValueError(f"an NCCL rank's shard runs on its card, {card}, "
+                         f"not on {device}")
+    return card
+
+
 class UnionSmoother(Smoother):
     """The single-device :class:`Smoother` on the union of a
     decomposition's shards, with its exchanges (``sync``), so
@@ -275,10 +295,12 @@ class UnionSmoother(Smoother):
     ``device``: ``"cuda"`` by default (raises without a card); ``"cpu"``
     runs the plain versions.  All shards run on it together, unless
     ``distributed``: then ``torch.distributed`` must be initialized
-    with the gloo backend (NCCL is not supported), ``n_shards`` is its
-    world size, and this process runs the shard of its rank on
-    ``device`` (eager: its exchanges are collectives the host waits
-    for).
+    (NCCL or gloo), ``n_shards`` is its world size, and this process
+    runs the shard of its rank on ``device`` (eagerly: its exchanges
+    are collectives, which the batched driver does not capture).  Under
+    NCCL that is the rank's card, the current device
+    (``parallel.ranks.join`` makes it so): ``"cuda"`` resolves to it,
+    and another card raises ``ValueError``.
 
     ``points`` is the union's (U, 3) internal points, the shards' rows
     one after another (``union.base``); :meth:`shard_points` gives the
@@ -293,6 +315,8 @@ class UnionSmoother(Smoother):
                  normalize: bool = True, device=None,
                  distributed: bool = False):
         device = resolve_device(device)
+        if distributed:
+            device = _rank_device(device)
         self._build(mesh, n_shards, distributed)
         if normalize:
             center = mesh.points.mean(axis=0)
@@ -332,9 +356,6 @@ class UnionSmoother(Smoother):
         if distributed:
             import torch.distributed as dist
 
-            if dist.get_backend() != "gloo":
-                raise ValueError("the shards' ranks run on gloo only, not "
-                                 f"{dist.get_backend()}")
             rank, world = dist.get_rank(), dist.get_world_size()
             if n_shards not in (None, world):
                 raise ValueError(f"n_shards {n_shards} != world size "
@@ -489,7 +510,10 @@ class UnionSmoother(Smoother):
     def to_external_point_field(self, arr) -> np.ndarray:
         """A per-point array over the union rows -> the global mesh's
         point order, each point from its owner's row (over the ranks
-        with ``distributed``)."""
+        with ``distributed``: each rank writes its owned points into a
+        float64 field of zeros on its device, one all-reduce SUM adds
+        each point's one value to zeros, exactly, and the sum is copied
+        to the host once)."""
         arr = np.asarray(arr)
         un = self.union
         if not self.distributed:
@@ -499,12 +523,12 @@ class UnionSmoother(Smoother):
         import torch.distributed as dist
 
         glob = torch.zeros((self.mesh.n_points,) + arr.shape[1:],
-                           dtype=torch.float64)
+                           dtype=torch.float64, device=self.device)
         own = un.owned
-        glob[torch.from_numpy(un.l2g[own])] = torch.from_numpy(
-            np.asarray(arr[own], dtype=np.float64))
+        glob[self._index(un.l2g[own])] = self._tensor(arr[own],
+                                                      torch.float64)
         dist.all_reduce(glob, op=dist.ReduceOp.SUM)
-        return glob.numpy().astype(arr.dtype, copy=False)
+        return glob.cpu().numpy().astype(arr.dtype, copy=False)
 
     def _external_units(self, rep: dict) -> dict:
         """A quality report of internal coordinates in external units."""

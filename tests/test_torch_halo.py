@@ -50,12 +50,13 @@ from smoothmesh_torch import testcases as ttc
 from smoothmesh_torch.boundary import classify_boundary_points
 from smoothmesh_torch.convert import halo_state_from_jax
 from smoothmesh_torch.device import to_device
-from smoothmesh_torch.driver import Smoother
+from smoothmesh_torch.driver import Smoother, StepResult
 from smoothmesh_torch.mesh.blockmesh import hex_block, perturb, prism_block
 from smoothmesh_torch.mesh.topology import MeshTopology, compile_topology
 from smoothmesh_torch.ops import smoothing as sm
 from smoothmesh_torch.parallel import halo, partition, scatter
 from smoothmesh_torch.parallel.halo import HaloSmoother
+from smoothmesh_torch.parallel.ranks import Job, run_ranks
 from smoothmesh_torch.parallel.sync import UnionSync
 from smoothmesh_torch.params import SmoothingParams
 from smoothmesh_torch.quality import (QUALITY_TD_KEYS, mesh_stats,
@@ -318,6 +319,21 @@ def test_halo_state_from_jax_matches():
         assert g.n_frozen == w.n_frozen
     np.testing.assert_allclose(hs.denormalize(), want_pts, rtol=0,
                                atol=1e-9)
+
+
+def test_halo_ranks_match_jax_f64(tmp_path):
+    """The whole slice on the CPU: 3 gloo ranks (``run_ranks``, each
+    joined by ``join``), one halo shard each, against the JAX
+    HaloSmoother over 3 devices."""
+    want, _, want_pts = _jax_halo_run("60-120")
+    params = SmoothingParams(centroidal_iters=ITERS, rel_tol=0.0,
+                             **BANDS["60-120"])
+    out = run_ranks(Job(_parity_mesh(PORT), params, ITERS, device="cpu",
+                        dtype="float64"), 3, tmp_path)
+    for r in out:
+        _assert_same_run([StepResult(*t) for t in r["results"]], want)
+        np.testing.assert_allclose(r["denormalized"], want_pts, rtol=0,
+                                   atol=1e-9)
 
 
 # -- against the port's single-device Smoother --------------------------------
