@@ -159,12 +159,12 @@ Phases, each fatal on failure:
      count of phase 4's float32 kernels on every iteration, its
      ms/iteration both ways, capture time and peak memory; the 128^3
      boundary configuration in float64, 8 batched iterations, its
-     ms/iteration and peak memory; at 64^3 in 4 shards the halo
-     (use_tile_engine=True) against the single device and the disjoint
-     one (the rule's choice in float64) against it with the freezes
-     off, in float64 and then in float32: the farthest point in units
-     of the coordinate scale and the points beyond 1e-5 of it (phase
-     9's and 10's tolerances); the CLI with -dtype float64 on the 32^3
+     ms/iteration and peak memory; at 64^3 in 4 shards on the card
+     (n_shards=4) the halo against the single device and the disjoint
+     one (the rule's choice in float64, driver.decomposition) against
+     it with the freezes off, in float64 and then in float32: the
+     farthest point in units of the coordinate scale and the points
+     beyond 1e-5 of it (phase 9's and 10's tolerances); the CLI with -dtype float64 on the 32^3
      case on the card and on the CPU (-checkMesh: exit 0, Mesh OK, the
      report's integers equal and the rest within 1e-9 relative + 1e-12,
      the written points within 1e-10 x the scale) and with -parallel
@@ -191,10 +191,35 @@ Phases, each fatal on failure:
      two NCCL ranks on two cards at 128^3 against HaloSmoother with 2
      shards on one card (bit-equal; the report within Q_REL_TOL, its
      parts summed in another order), else a line saying it was not run;
+  13. (before the record) the decompositions over several devices in
+     one process, one host thread a device (devices=,
+     smoothmesh_torch.parallel.cards): the card count, peer access
+     between each pair of cards and the card's name and power limit;
+     each run against the same class with as many shards on one card
+     (the union, graph replays), from shards built once for both:
+     world 1 (devices=[cuda:0]) for the halo and the disjoint
+     decomposition at 128^3, steps(32); world 2 with both members on
+     cuda:0, each on its own stream, at 128^3 for both and the halo's
+     32^3 boundary configuration (max step 0.25, 8 iterations, K8).
+     Required: results, points and denormalize() bit-equal, the holders
+     of a shared point bit-identical, each member's launches of K1-K8
+     equal to the union's and the members' counts summing to the
+     total; at world 2 quality() within 1e-12 relative for the disjoint
+     decomposition, 1e-5 for the halo (its float32 parts summed a
+     member at a time, as phase 12's ranks sum them); each member's
+     launches and the ms/iteration of both forms printed.  On 2 (and
+     4) cards where the machine has them, devices=cuda:0..N-1 at 128^3
+     for both decompositions, else a line saying why not;
+     Smoother(n_devices=cards + 1) refused before any build with a
+     message naming both numbers; the CLI with -device cuda -parallel
+     in a subprocess with no RANK: exit 0, "N cards in this process"
+     in its log, the written points equal to ShardedSmoother(
+     n_shards=N) in this process;
   8. one JSON line of the halo's figures, one of the disjoint
-     decomposition's, one of phase 11's, one of phase 12's, one of the
-     kernels (with the halo's, the disjoint decomposition's and the
-     NCCL ranks' launches), then the last line
+     decomposition's, one of phase 11's, one of phase 12's, one of
+     phase 13's, one of the kernels (with the halo's, the disjoint
+     decomposition's, the NCCL ranks' and the card group's launches),
+     then the last line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without
@@ -2015,7 +2040,7 @@ def sharded_phase(mesh, mesh_int, topo, orders, smi: str,
                 f"the -parallel run's points read back as {back.shape}")
     print(f"CLI -parallel on the {SMALL_SIDE}^3 case (binary, "
           f"{SMALL_ITERS} iterations, -checkMesh): exit 0 in {t_cli:.2f} s, "
-          f"{n_dev} shard(s) on the first card, Mesh OK, the "
+          f"{n_dev} shard(s), one a card in this process, Mesh OK, the "
           f"{small.n_points} points read back", flush=True)
     out["cli_parallel_s"] = t_cli
     out["launches"] = launches
@@ -2076,7 +2101,7 @@ def float64_phase(mesh_int, topo, steps32, smi: str) -> dict:
     phase 2's reordered 128^3 mesh and its topology; ``steps32``: phase
     4's float32 StepResults of the default path there."""
     from smoothmesh_torch import cli, kernels
-    from smoothmesh_torch.driver import Smoother
+    from smoothmesh_torch.driver import Smoother, decomposition
     from smoothmesh_torch.io.case import FoamCase
     from smoothmesh_torch.mesh.tiling import permute_mesh
     from smoothmesh_torch.mesh.topology import compile_topology
@@ -2253,19 +2278,19 @@ def float64_phase(mesh_int, topo, steps32, smi: str) -> dict:
         want_ff_pts = single.denormalize()[orders_d.point_new]
         del single
         name = str(dtype).split(".")[1]
-        hs = Smoother(mesh_d, params, dtype=dtype, device="cuda",
-                      n_devices=HALO_SHARDS, use_tile_engine=True)
-        require(type(hs) is HaloSmoother, f"{name}: {type(hs)}")
+        hs = HaloSmoother(mesh_d, params, n_shards=HALO_SHARDS,
+                          dtype=dtype, device="cuda")
         got = hs.steps(F64_ITERS)
         rec = {"halo": decomposition_gap(
             f"{name} halo at {F64_DEC_SIDE}^3", got, want, hs.denormalize(),
             want_pts, HALO_COUNT_TOL * n_d)}
         del hs
         # float64 takes the disjoint one by the rule, float32 is told to
-        ss = Smoother(mesh_d, ff, dtype=dtype, device="cuda",
-                      n_devices=SHARDED_SHARDS,
-                      use_tile_engine=None if dtype == f64 else False)
-        require(type(ss) is ShardedSmoother, f"{name}: {type(ss)}")
+        require(decomposition("cuda", dtype, None if dtype == f64
+                              else False) == "disjoint",
+                f"{name}: the rule takes the halo")
+        ss = ShardedSmoother(mesh_d, ff, n_shards=SHARDED_SHARDS,
+                             dtype=dtype, device="cuda")
         got = ss.steps(F64_ITERS)
         require(holders_identical(ss), f"{name} disjoint at "
                 f"{F64_DEC_SIDE}^3: the holders differ")
@@ -2548,8 +2573,10 @@ def nccl_cli(mesh, workdir: str, device: str = "cuda") -> dict:
     with contextlib.redirect_stdout(text), unittest.mock.patch.object(
             torch.cuda, "device_count", return_value=1):
         rc = cli.main(["-case", roots[1], *args])
-    require(rc == 0 and "Running sharded over 1 shards (one process on "
-            f"{device})" in text.getvalue(),
+    here_line = ("Running sharded over 1 shards ("
+                 + ("1 cards in this process)" if device == "cuda"
+                    else "one process on cpu)"))
+    require(rc == 0 and here_line in text.getvalue(),
             f"the in-process -parallel at one shard: {rc}, "
             f"{text.getvalue()[-400:]}")
     got, want = (FoamCase(r).read_mesh(float(SMALL_ITERS)).points
@@ -2647,6 +2674,287 @@ def nccl_phase(mesh, smi: str, device: str = "cuda") -> dict:
             print("two NCCL ranks on two cards: not run, this machine has "
                   f"{n_cards} card (NCCL refuses two ranks on one card)",
                   flush=True)
+    out["launches"] = launches
+    return out
+
+
+def memo_shards(classes):
+    """Phase 13: each class's host shard build memoized for the phase
+    (keyed by the mesh and the shard count): the card group and the
+    union it is held against start from the same shards, built once."""
+    import unittest.mock
+
+    stack = contextlib.ExitStack()
+    for cls in classes:
+        build, cache = cls._shards_of, {}
+
+        def memo(mesh, n_shards, times, _build=build, _cache=cache):
+            key = (id(mesh), n_shards)
+            if key not in _cache:
+                built = {}
+                _cache[key] = (mesh, _build(mesh, n_shards, built), built)
+            times.update(_cache[key][2])
+            return _cache[key][1]
+
+        stack.enter_context(unittest.mock.patch.object(
+            cls, "_shards_of", staticmethod(memo)))
+    return stack
+
+
+def card_holders_identical(cs, un) -> bool:
+    """Phase 13: every holder of a shared point holds its owner's bits,
+    in the group's points (the union's layout, read through the union's
+    tables)."""
+    rows = un.sync.rows
+    own = torch.as_tensor(un.union.owner_rows(), device=rows.device)
+    pts = cs.points.to(rows.device)
+    return torch.equal(pts[rows], pts[own])
+
+
+def cards_against_union(label: str, cls, mesh, params, n: int, geometry,
+                        devices, smi: str, report: bool) -> dict:
+    """Phase 13: ``cls(..., devices=devices)`` (one shard a device, one
+    host thread each, in this process) against ``cls`` with as many
+    shards on devices[0] (the union, its batch captured), each stepping
+    ``n`` times from the same start.  Required: results, points,
+    ``denormalize()`` bit-equal; the holders of a shared point
+    bit-identical; each member's kernel launches equal to the union's
+    (one launch over all its shards an iteration, the same batches and
+    reruns) and the members' counts summing to the total; with
+    ``report``, ``quality()`` within NCCL_QUALITY_REL relative (the
+    disjoint one's, the global report) or Q_REL_TOL (the halo's, whose
+    float32 parts are summed a member at a time, as the ranks sum them),
+    K7 launched once by each halo member, by rank 0 alone in the
+    disjoint one -> the figures (``launches``: the group's, steps and
+    report)."""
+    from smoothmesh_torch import kernels
+    from smoothmesh_torch.parallel.sharded import ShardedSmoother
+
+    world = len(devices)
+    dev0 = devices[0]
+    t0 = time.perf_counter()
+    un = cls(mesh, params, n_shards=world, device=dev0)
+    if geometry is not None:
+        un.enable_boundary_smoothing(*geometry)
+    un.prepare_batch()
+    t_union = time.perf_counter() - t0
+    kernels.reset_launches()
+    want = un.steps(n)
+    want_launches = {k.name: k.launches for k in kernels.ALL}
+    t0 = time.perf_counter()
+    cs = cls(mesh, params, devices=devices)
+    if geometry is not None:
+        cs.enable_boundary_smoothing(*geometry)
+    t_cards = time.perf_counter() - t0
+    kernels.reset_launches()
+    got = cs.steps(n)
+    total = {k.name: k.launches for k in kernels.ALL}
+    members = {r: {k.name: k.member_launches.get(r, 0) for k in kernels.ALL}
+               for r in range(world)} if world > 1 else {0: total}
+    row = lambda r: dataclasses.astuple(r)[:3] + dataclasses.astuple(r)[4:]
+    where = f"{label}, {world} member(s) on {[str(d) for d in devices]}"
+    require([row(r) for r in got] == [row(r) for r in want],
+            f"{where}: results differ from the union's")
+    require(torch.equal(cs.points.cpu(), un.points.cpu()),
+            f"{where}: points not bit-equal to the union's")
+    require(np.array_equal(cs.denormalize(), un.denormalize()),
+            f"{where}: denormalize() not bit-equal")
+    require(card_holders_identical(cs, un), f"{where}: the holders of a "
+            "shared point differ")
+    on_card = dev0.type == "cuda"
+    for r, counts in members.items():
+        require(counts == want_launches or not on_card,
+                f"{where}: member {r} launched {counts}, the union "
+                f"{want_launches}")
+    require(all(total[k] == sum(m[k] for m in members.values())
+                for k in total), f"{where}: the members' launches "
+            f"{members} do not sum to the total {total}")
+    worst = None
+    if report:
+        if isinstance(un, ShardedSmoother):
+            # one global topology for both reports
+            un.quality()
+            cs.members[0]._report_td = un._report_td
+        kernels.reset_launches()
+        rep = cs.quality()
+        q_launches = {k.name: k.launches for k in kernels.ALL if k.launches}
+        # the halo's members report their claims each, the disjoint
+        # decomposition's rank 0 the global report
+        gather = kernels.TABLE_GATHER
+        for r in range(world):
+            mine = 1 if r == 0 or not isinstance(un, ShardedSmoother) else 0
+            require(gather.member_launches.get(r, 0) == mine or world == 1
+                    or not on_card, f"{where}: member {r} launched "
+                    f"{gather.name} {gather.member_launches.get(r, 0)} "
+                    f"times in the report, expected {mine}")
+        for k in kernels.ALL:
+            total[k.name] += k.launches
+        worst = quality_worst_rel(rep, un.quality())
+        # the disjoint report is one global report of the same points;
+        # the halo's sums float32 parts a member at a time, as the ranks
+        # do (phase 12), where the union's is one part
+        q_tol = (NCCL_QUALITY_REL if world == 1
+                 or isinstance(un, ShardedSmoother) else Q_REL_TOL)
+        require(worst <= q_tol, f"{where}: quality() {worst:.3g} "
+                f"relative from the union's (at most {q_tol})")
+    fig = dict(world=world, devices=[str(d) for d in devices],
+               ms_last_batch_cards=got[-1].wall_ms,
+               ms_first_batch_cards=got[0].wall_ms,
+               ms_last_batch_union=want[-1].wall_ms,
+               setup_s_cards=t_cards, setup_s_union=t_union,
+               quality_worst_rel=worst, launches_members=members)
+    print(f"{where} in this process against {cls.__name__}(n_shards="
+          f"{world}) on {dev0}: results, points and denormalize() "
+          f"bit-equal, holders identical"
+          + (f", quality() within {worst:.3g} relative" if report else "")
+          + f"; {n} iterations in batches of {un.iter_batch}: "
+          f"{got[-1].wall_ms:.3f} ms/iteration in the group's last batch "
+          f"(eager; its first {got[0].wall_ms:.3f}), "
+          f"{want[-1].wall_ms:.3f} for the union (graph replays); set-up "
+          f"{t_cards:.2f} s (the union {t_union:.2f} s, shards built once "
+          f"for both); each member launched "
+          + "; ".join(f"{r}: " + ", ".join(
+              f"{k.split()[0]} {v}" for k, v in c.items() if v)
+                      for r, c in members.items())
+          + (f"; the report launched {q_launches}" if report else "")
+          + f" on {smi}", flush=True)
+    del cs, un
+    if on_card:
+        torch.cuda.empty_cache()
+    fig["launches"] = total
+    return fig
+
+
+def cards_cli(mesh, workdir: str, n_cards: int, device: str = "cuda"
+              ) -> dict:
+    """Phase 13: the CLI with -device cuda -parallel in a subprocess with
+    no RANK in its environment: exit 0, its log naming the cards in
+    this process and their count, the written points equal to the
+    disjoint union's at that many shards in this process.
+    ``device="cpu"`` rehearses it (one shard, "one process on cpu")."""
+    from smoothmesh_torch.io.case import FoamCase
+    from smoothmesh_torch.parallel.sharded import ShardedSmoother
+    from smoothmesh_torch.params import SmoothingParams
+
+    root = os.path.join(workdir, "case")
+    write_case(root, mesh)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = here
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "smoothmesh_torch.cli", "-case", root,
+         "-parallel", "-device", device, "-centroidalIters",
+         str(SMALL_ITERS), "-writeFormat", "binary"], env=env, cwd=here,
+        capture_output=True, text=True, timeout=NCCL_TIMEOUT_S)
+    t_sub = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    require(proc.returncode == 0, f"the CLI's -parallel without a launcher "
+            f"exited with {proc.returncode}: {log[-1500:]}")
+    n = n_cards if device == "cuda" else 1
+    line = (f"Running sharded over {n} shards ("
+            + (f"{n} cards in this process)" if device == "cuda"
+               else "one process on cpu)"))
+    require(line in log, f"the CLI's -parallel without a launcher: no "
+            f"'{line}' in {log[-800:]}")
+    case = FoamCase(root)
+    un = ShardedSmoother(case.read_mesh(0.0), SmoothingParams(
+        centroidal_iters=SMALL_ITERS), n_shards=n, device=device)
+    un.steps(SMALL_ITERS)
+    got = case.read_mesh(float(SMALL_ITERS)).points
+    require(np.array_equal(got, un.denormalize()),
+            "the CLI's -parallel without a launcher wrote other points "
+            f"than ShardedSmoother(n_shards={n}) in this process")
+    print(f"CLI -device {device} -parallel without a launcher (no RANK): "
+          f"exit 0 in {t_sub:.1f} s with its start-up, '{line}', the "
+          f"{mesh.n_points} written points equal to ShardedSmoother("
+          f"n_shards={n})'s in this process", flush=True)
+    return dict(subprocess_s=t_sub)
+
+
+def cards_phase(mesh, smi: str, device: str = "cuda") -> dict:
+    """Phase 13: the decompositions over several devices in one process,
+    one host thread a device (``devices=``) -> the figures and the
+    launches of the group's runs, summed.  ``device="cpu"`` rehearses it
+    on the CPU (the members there share the one CPU device)."""
+    from smoothmesh_torch import kernels
+    from smoothmesh_torch.driver import Smoother
+    from smoothmesh_torch.parallel.halo import HaloSmoother
+    from smoothmesh_torch.parallel.sharded import ShardedSmoother
+    from smoothmesh_torch.params import SmoothingParams
+    from smoothmesh_torch.testcases import bench_dome_geometry
+
+    on_card = device == "cuda"
+    n_cards = torch.cuda.device_count()
+    peers = {f"{a}->{b}": torch.cuda.can_device_access_peer(a, b)
+             for a in range(n_cards) for b in range(n_cards) if a != b}
+    print(f"{n_cards} card(s), peer access between cards {peers or 'n/a'}: "
+          f"{smi}", flush=True)
+    out = dict(cards=n_cards, peer_access=peers)
+    params = SmoothingParams(centroidal_iters=MAIN_ITERS, rel_tol=0.0)
+    small = bench_mesh(SMALL_SIDE)
+    bparams = dataclasses.replace(boundary_params(SMALL_ITERS),
+                                  max_step_length=SMALL_BND_MAX_STEP)
+    geometry = bench_dome_geometry()[1:]
+    one = [torch.device(device, 0) if on_card else torch.device("cpu")]
+    runs = [(f"halo {MAIN_SIDE}^3", HaloSmoother, mesh, params, MAIN_ITERS,
+             None, one, False),
+            (f"disjoint {MAIN_SIDE}^3", ShardedSmoother, mesh, params,
+             MAIN_ITERS, None, one, False),
+            (f"halo {MAIN_SIDE}^3", HaloSmoother, mesh, params, MAIN_ITERS,
+             None, one * 2, True),
+            (f"disjoint {MAIN_SIDE}^3", ShardedSmoother, mesh, params,
+             MAIN_ITERS, None, one * 2, True),
+            (f"halo {SMALL_SIDE}^3 boundary", HaloSmoother, small, bparams,
+             SMALL_ITERS, geometry, one * 2, True)]
+    if on_card:
+        for world in (2, 4):
+            if n_cards >= world:
+                cards = [torch.device("cuda", i) for i in range(world)]
+                runs += [(f"halo {MAIN_SIDE}^3", HaloSmoother, mesh, params,
+                          MAIN_ITERS, None, cards, False),
+                         (f"disjoint {MAIN_SIDE}^3", ShardedSmoother, mesh,
+                          params, MAIN_ITERS, None, cards, False)]
+    launches = {k.name: 0 for k in kernels.ALL}
+    figs = []
+    with memo_shards((HaloSmoother, ShardedSmoother)):
+        for label, cls, m, prm, n, geom, devs, report in runs:
+            wall_clock(f"phase 13: {label}, {len(devs)} member(s) on "
+                       f"{', '.join(map(str, devs))}")
+            fig = cards_against_union(label, cls, m, prm, n, geom, devs,
+                                      smi, report)
+            fig["label"] = label
+            for name, c in fig.pop("launches").items():
+                launches[name] += c
+            figs.append(fig)
+    out["runs"] = figs
+    if n_cards < 2:
+        print("several cards: not run, this machine has "
+              f"{n_cards} card (world 2 ran with both members on cuda:0, "
+              "each on its own stream: no copy between cards)",
+              flush=True)
+    if on_card:
+        wall_clock("phase 13: the refusal")
+        try:
+            Smoother(small, SmoothingParams(centroidal_iters=1),
+                     n_devices=n_cards + 1)
+        except ValueError as e:
+            msg = str(e)
+        else:
+            raise RuntimeError(f"chip_smoke: Smoother(n_devices="
+                               f"{n_cards + 1}) on {n_cards} card(s) ran; "
+                               "it must be refused")
+        want = (f"n_devices={n_cards + 1} puts one shard on each of "
+                f"{n_cards + 1} cards, and this machine has {n_cards}")
+        require(want in msg, f"the refusal: {msg}")
+        out["refusal"] = msg
+        print(f"Smoother(n_devices={n_cards + 1}) refused before any "
+              f"build: {msg}", flush=True)
+    wall_clock("phase 13: the CLI without a launcher")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cards_") as tmp:
+        out["cli"] = cards_cli(small, tmp, n_cards, device)
     out["launches"] = launches
     return out
 
@@ -3147,10 +3455,21 @@ def main() -> int:
     # -- 11. float64 on the card ---------------------------------------------
     float64 = float64_phase(mesh_int, topo, steps, smi)
 
-    wall_clock("phase 12")
-    # -- 12. the decompositions one rank a card over NCCL --------------------
-    torch.cuda.empty_cache()
-    nccl = nccl_phase(mesh, smi)
+    from smoothmesh_torch.parallel.halo import HaloSmoother
+    from smoothmesh_torch.parallel.sharded import ShardedSmoother
+
+    # phase 12's unions at one shard and phase 13's at one shard start
+    # from the same host shard builds
+    with memo_shards((HaloSmoother, ShardedSmoother)):
+        wall_clock("phase 12")
+        # -- 12. the decompositions one rank a card over NCCL ----------------
+        torch.cuda.empty_cache()
+        nccl = nccl_phase(mesh, smi)
+
+        wall_clock("phase 13")
+        # -- 13. the decompositions over several devices in one process ----
+        torch.cuda.empty_cache()
+        cards = cards_phase(mesh, smi)
 
     wall_clock("phase 8")
     # -- 8. the record ----------------------------------------------------
@@ -3164,6 +3483,7 @@ def main() -> int:
         results[k]["launches_halo"] = halo["launches"][k]
         results[k]["launches_sharded"] = sharded["launches"][k]
         results[k]["launches_nccl"] = nccl["launches"][k]
+        results[k]["launches_cards"] = cards["launches"][k.name]
     for k in (kernels.FACE_GEOMETRY, kernels.CELL_CENTRES, kernels.FREEZE,
               kernels.FACE_ANGLES):
         results[k]["small_runs_exact"] = small_exact
@@ -3177,6 +3497,8 @@ def main() -> int:
     print(json.dumps({"float64": float64}))
     print(json.dumps({"nccl": {k: v for k, v in nccl.items()
                                if k != "launches"}}))
+    print(json.dumps({"cards": {k: v for k, v in cards.items()
+                                if k != "launches"}}))
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

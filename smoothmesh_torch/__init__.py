@@ -32,7 +32,8 @@ Layout (each module mirrors its ``smoothmesh_tpu`` counterpart):
                   one host read a batch), convergence and writes
   - ``parallel``  the halo and the disjoint domain decompositions: the
                   shards (host), all of them on one device as one union
-                  topology, or one a rank over ``torch.distributed``
+                  topology, one a rank over ``torch.distributed``, or one
+                  a device in this process (a host thread each)
   - ``convert``   building the driver's state from the JAX package's
   - ``testcases`` the reference's eight testcases as generators
   - ``models``    the registry of the smoothing engines

@@ -19,9 +19,10 @@ runs XLA on its device and no Pallas kernel.
 the shards available (:func:`parallel_shards`): one a rank where the
 process is a ``torch.distributed`` rank (``torchrun --nproc-per-node
 N``: on ``cuda`` NCCL, each rank on its own card ``cuda:LOCAL_RANK``;
-on ``cpu`` gloo; rank 0 prints and writes), else one a CUDA device on
-``cuda``, all in this process on the first card, else one on
-``cpu``.
+on ``cpu`` gloo; rank 0 prints and writes), else one a card on
+``cuda``, on all the machine's cards in this process, one host thread a
+card (``ShardedSmoother(devices=)``, as the JAX CLI's ShardedSmoother
+takes ``jax.devices()``), else one on ``cpu``.
 
 Patch list options accept the reference syntax: a bare word
 (``-layerPatches walls``) or a parenthesized list with regexes
@@ -78,7 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
       help="run the disjoint domain decomposition over all available "
       "shards: the torch.distributed ranks (torchrun; NCCL on cuda, one "
       "card a rank, gloo on cpu), else the CUDA devices (in this process, "
-      "on the first card), else one")
+      "one shard a card), else one")
     a("-centroidalIters", "--centroidalIters", type=int, default=1000)
     a("-maxStepLength", "--maxStepLength", type=float, default=None)
     a("-relStepFrac", "--relStepFrac", type=float, default=0.5)
@@ -133,8 +134,9 @@ def parallel_shards(device: torch.device) -> Tuple[int, bool,
     the ``WORLD_SIZE`` (as ``torchrun`` does; the process group is
     joined here at ``MASTER_ADDR``:``MASTER_PORT`` unless it is
     already, by ``parallel.ranks.join``'s rule: NCCL on the card
-    ``cuda:LOCAL_RANK`` on ``cuda``, gloo on ``cpu``), else
-    ``torch.cuda.device_count()`` on ``cuda``, else 1."""
+    ``cuda:LOCAL_RANK`` on ``cuda``, gloo on ``cpu``), else on ``cuda``
+    the machine's cards, ``torch.cuda.device_count()``, one shard a card
+    in this process, else 1."""
     import torch.distributed as dist
 
     from smoothmesh_torch.parallel.ranks import join
@@ -235,13 +237,20 @@ def _smooth(args, device: torch.device, n_shards, distributed: bool) -> int:
         else:
             from smoothmesh_torch.parallel.sharded import ShardedSmoother
 
-            how = (f"torch.distributed ranks, "
-                   f"{torch.distributed.get_backend()}" if distributed
-                   else f"one process on {device}")
+            if distributed:
+                how = ("torch.distributed ranks, "
+                       f"{torch.distributed.get_backend()}")
+                where = dict(n_shards=n_shards, device=device,
+                             distributed=True)
+            elif device.type == "cuda":
+                how = f"{n_shards} cards in this process"
+                where = dict(devices=[torch.device("cuda", i)
+                                      for i in range(n_shards)])
+            else:
+                how = f"one process on {device}"
+                where = dict(n_shards=n_shards, device=device)
             print(f"Running sharded over {n_shards} shards ({how})")
-            smoother = ShardedSmoother(mesh, params, n_shards=n_shards,
-                                       dtype=dtype, device=device,
-                                       distributed=distributed)
+            smoother = ShardedSmoother(mesh, params, dtype=dtype, **where)
             # its boundary classification is in the mesh's point order
             to_ext = np.asarray
     except TypeError as e:      # a dtype the device does not run

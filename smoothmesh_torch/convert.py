@@ -140,7 +140,8 @@ def _union_state_from_jax(cls, mesh, n_shards, points, params, center,
     resolved = SmoothingParams(**{k: v for k, v in params.items()
                                   if k in pfields})
     sm = cls.__new__(cls)
-    sm._build(mesh, n_shards, distributed=False)
+    sm.group = None
+    sm._build(mesh, n_shards)
     un = sm.union
     sm._start(un.rows(np.asarray(points, dtype=np.float64)), resolved,
               center, scale, resolve_device(device), dtype)

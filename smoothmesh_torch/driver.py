@@ -325,8 +325,8 @@ class _Batch:
     point, so after ``done`` the state passes through bit for bit.  On
     the card one iteration is captured as a CUDA graph
     (:class:`kernels.Graph`) on the buffers held here and replayed; on
-    the CPU, and with an exchange that cannot be captured
-    (``parallel.sync.DistSync``), it runs eagerly.
+    the CPU, and with an exchange that cannot be captured (a group's,
+    ``parallel.sync.DistSync``), it runs eagerly.
     """
 
     #: the record's columns (float64; counts are exact)
@@ -427,14 +427,27 @@ def _decomposed(mesh, params, dtype=None, topo=None, device=None,
     """The smoother of ``Smoother(..., n_devices=N)`` for N > 1 (the
     halo's ``parallel.halo.HaloSmoother`` or the disjoint one's
     ``parallel.sharded.ShardedSmoother``, as :func:`decomposition`
-    picks).  ``topo`` is not used: each shard compiles its own."""
+    picks).  On ``cuda`` one shard a card, ``cuda:0`` to ``cuda:N-1``,
+    in this process (``devices=``, as the JAX package takes
+    ``jax.devices()[:N]``); fewer cards than N raise ``ValueError``
+    before any build.  On the CPU, the one torch device there, the N
+    shards run together on it.  ``topo`` is not used: each shard
+    compiles its own."""
     device = resolve_device(device)
     if decomposition(device, dtype, use_tile_engine) == "halo":
         from smoothmesh_torch.parallel.halo import HaloSmoother as cls
     else:
         from smoothmesh_torch.parallel.sharded import ShardedSmoother as cls
-    return cls(mesh, params, n_shards=n_devices, dtype=dtype,
-               normalize=normalize, device=device)
+    if device.type != "cuda":
+        return cls(mesh, params, n_shards=n_devices, dtype=dtype,
+                   normalize=normalize, device=device)
+    n_cards = torch.cuda.device_count()
+    if n_devices > n_cards:
+        raise ValueError(f"n_devices={n_devices} puts one shard on each of "
+                         f"{n_devices} cards, and this machine has "
+                         f"{n_cards}")
+    return cls(mesh, params, dtype=dtype, normalize=normalize,
+               devices=[torch.device("cuda", i) for i in range(n_devices)])
 
 
 class Smoother(metaclass=_Delegating):
@@ -463,7 +476,8 @@ class Smoother(metaclass=_Delegating):
         False keeps external coordinates.
     n_devices: None or 1 for this smoother; N > 1 (by keyword or by
         position) returns a domain decomposition's smoother over N
-        shards on ``device`` instead (the halo on ``cuda`` in float32,
+        shards instead, on ``cuda`` one a card on N cards in this
+        process, on the CPU all on it (the halo on ``cuda`` in float32,
         else the disjoint one, :func:`decomposition`;
         ``use_tile_engine`` True or False picks the halo or the
         disjoint one, as the JAX package's argument of that name picks

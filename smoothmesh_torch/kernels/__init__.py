@@ -18,6 +18,11 @@ graph (:class:`Graph`) runs nothing then: it is counted as captured,
 and each replay of the graph adds the launches it captured to the
 counts.
 
+Several host threads may launch at once (the members of a
+``parallel.cards.CardGroup``, one a card): a kernel is built and loaded
+once, under a lock, and the counts are kept under another, in total
+and for each member (:func:`count_as`).
+
 Arithmetic: ``--fmad=false`` keeps ``a*b+c`` as two rounded operations,
 as the plain PyTorch versions compute it, so the kernels agree with
 them to the last bits where the sums run in the same order; K1, K2, K4,
@@ -40,6 +45,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Sequence
@@ -58,6 +64,14 @@ NVCC_FLAGS = (
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+
+#: held while a kernel is built and loaded (builds of one process name
+#: their temporary files after the process, so two threads would collide)
+_BUILD_LOCK = threading.RLock()
+#: held while a count changes (``+=`` from several threads loses counts)
+_COUNT_LOCK = threading.Lock()
+#: ``member``: the card-group member whose launches this thread counts
+_THREAD = threading.local()
 
 
 def nvcc_path() -> str:
@@ -100,6 +114,8 @@ class Kernel:
         self.replaces = replaces      # the TPU kernel it ports
         self.launches = 0
         self.captured = 0             # launches recorded by a capture
+        #: launches by card-group member (:func:`count_as`)
+        self.member_launches = {}
         self.build_log = ""
         self._fn = None
 
@@ -153,15 +169,30 @@ class Kernel:
             log = self.log_path().read_text()
         return parse_ptxas(log)
 
+    def _open(self):
+        """The C entry point of the built library."""
+        fn = getattr(ctypes.CDLL(str(self.library_path())), self.entry)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
     def load(self):
+        """The C entry point, built and loaded at the first call (once,
+        whichever thread calls first; the others wait for it)."""
         if self._fn is None:
-            self._finish_build(self._start_build())
-            lib = ctypes.CDLL(str(self.library_path()))
-            fn = getattr(lib, self.entry)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            with _BUILD_LOCK:
+                if self._fn is None:
+                    self._finish_build(self._start_build())
+                    self._fn = self._open()
         return self._fn
+
+    def _count(self, n: int) -> None:
+        with _COUNT_LOCK:
+            self.launches += n
+            member = getattr(_THREAD, "member", None)
+            if member is not None:
+                self.member_launches[member] = \
+                    self.member_launches.get(member, 0) + n
 
     def launch(self, *args, device: torch.device) -> None:
         """Launch on ``device`` (the card of the tensors whose pointers
@@ -174,26 +205,28 @@ class Kernel:
             raise RuntimeError(
                 f"{self.name}: CUDA error {err} at launch")
         if capturing:
-            self.captured += 1
+            with _COUNT_LOCK:
+                self.captured += 1
         else:
-            self.launches += 1
+            self._count(1)
 
 
 def build_all() -> float:
     """Compile every kernel not yet built, one ``nvcc`` per source, all
     started together; load them.  Returns the seconds it took."""
     t0 = time.perf_counter()
-    started = [k._start_build() for k in ALL]
-    try:
-        for k, st in zip(ALL, started):
-            k._finish_build(st)
-    finally:
-        for st in started:
-            if st is not None and st[0].poll() is None:
-                st[0].kill()
-                st[0].wait()
-    for k in ALL:
-        k.load()
+    with _BUILD_LOCK:
+        started = [k._start_build() for k in ALL]
+        try:
+            for k, st in zip(ALL, started):
+                k._finish_build(st)
+        finally:
+            for st in started:
+                if st is not None and st[0].poll() is None:
+                    st[0].kill()
+                    st[0].wait()
+        for k in ALL:
+            k.load()
     return time.perf_counter() - t0
 
 
@@ -227,12 +260,21 @@ class Graph:
         with torch.cuda.device(self.device):
             self.graph.replay()
         for k, n in self.per_replay.items():
-            k.launches += n
+            k._count(n)
 
 
 def reset_launches() -> None:
-    for k in ALL:
-        k.launches = 0
+    with _COUNT_LOCK:
+        for k in ALL:
+            k.launches = 0
+            k.member_launches = {}
+
+
+def count_as(member) -> None:
+    """Count this thread's launches also as those of ``member`` (a
+    card-group member's rank; None: no member) in
+    ``Kernel.member_launches``."""
+    _THREAD.member = member
 
 
 def takes_kernel(device, dtype, name: str = "kernel") -> bool:

@@ -12,8 +12,12 @@
   - ``scatter``   the global layer and boundary set-up restricted to
                   each shard
   - ``sync``      the cross-shard exchanges, all shards on one device
-                  (``UnionSync``, ``UnionPointSync``) or one shard a rank
-                  over ``torch.distributed`` (``DistSync``,
-                  ``DistPointSync``)
+                  (``UnionSync``, ``UnionPointSync``) or one shard a
+                  member of a group (``DistSync``, ``DistPointSync``):
+                  a rank over ``torch.distributed`` (``ProcessGroup``)
+                  or a device of this process (``cards``)
   - ``ranks``     starting the ranks of a distributed run
+  - ``cards``     one shard a device in this process, one host thread a
+                  device (``devices=``): ``CardGroup`` and
+                  ``CardSmoother``
 """

@@ -12,9 +12,12 @@ This is the JAX package's ``smoothmesh_tpu/parallel/halo.py``, whose
 shards run one program each under ``jax.shard_map``.
 
 Here the shards run all on one device, as one union topology
-(:class:`UnionSync`), or one shard a rank over ``torch.distributed``
-(:class:`DistSync`); :mod:`smoothmesh_torch.parallel.union` holds what
-this shares with the disjoint decomposition.
+(:class:`UnionSync`), or one shard a member of a group
+(:class:`DistSync`): a rank over ``torch.distributed``, or a host
+thread of this process a device (``devices=``,
+:mod:`smoothmesh_torch.parallel.cards`);
+:mod:`smoothmesh_torch.parallel.union` holds what this shares with the
+disjoint decomposition.
 
 The host part (:func:`build_halo_shards`) is numpy and builds the same
 shards as the JAX package's, each compiled by this package's topology
@@ -242,28 +245,30 @@ class HaloSmoother(UnionSmoother):
 
     The counterpart of the JAX package's ``HaloSmoother``
     (``smoothmesh_tpu/parallel/halo.py:569``; ``n_shards`` stands for
-    its ``n_devices``), with the driver's features: the default
-    constraints with the face angle, layer blending and boundary
-    smoothing.  It is the single-device smoother on the union of the
-    shards (:class:`~smoothmesh_torch.parallel.union.UnionSmoother`)
-    with the halo exchanges and the owner mask passed into the
-    iteration: all shards on ``device`` together
-    (:class:`~smoothmesh_torch.parallel.sync.UnionSync`), or with
-    ``distributed`` the shard of this rank
+    its ``n_devices``, ``devices=`` is its ``devices``), with the
+    driver's features: the default constraints with the face angle,
+    layer blending and boundary smoothing.  It is the single-device
+    smoother on the union of the shards
+    (:class:`~smoothmesh_torch.parallel.union.UnionSmoother`) with the
+    halo exchanges and the owner mask passed into the iteration: all
+    shards on ``device`` together
+    (:class:`~smoothmesh_torch.parallel.sync.UnionSync`), or the shard
+    of this member of a group, with ``distributed`` or ``devices=``
     (:class:`~smoothmesh_torch.parallel.sync.DistSync`).
     """
 
-    def _shards_of(self, mesh: PolyMesh, n_shards: int,
+    @staticmethod
+    def _shards_of(mesh: PolyMesh, n_shards: int,
                    times: dict) -> HaloShards:
         return build_halo_shards(mesh, n_shards, times=times)
 
     def _set_exchange(self) -> None:
         un, idx = self.union, self._index
         self.owned = self._tensor(un.owned, torch.bool)
-        if self.distributed:
+        if self.group is not None:
             self.sync = DistSync(idx(un.pair_rows), idx(un.pair_slots),
                                  self._tensor(un.pair_owner, torch.bool),
-                                 un.n_slots)
+                                 un.n_slots, self.group)
         else:
             self.sync = UnionSync(idx(un.pair_rows), idx(un.owner_rows()),
                                   idx(un.pair_slots), un.n_slots)
@@ -283,10 +288,6 @@ class HaloSmoother(UnionSmoother):
             face_claim=self._tensor(un.claim_face, torch.bool),
             edge_claim=self._tensor(un.claim_edge, torch.bool),
             cell_claim=self._tensor(un.claim_cell, torch.bool))
-        parts = [part]
-        if self.distributed:
-            import torch.distributed as dist
-
-            parts = [None] * dist.get_world_size()
-            dist.all_gather_object(parts, part)
+        parts = ([part] if self.group is None
+                 else self.group.all_gather_object(part))
         return self._external_units(combine_quality_parts(parts))

@@ -110,7 +110,8 @@ def run_ranks(job: Job, world: int, workdir, timeout_s: float = 600.0):
     dict (``points``: its union rows, ``results``: the StepResults as
     tuples, ``denormalized``: the global points, ``quality``: the
     global report, ``setup_times``, the group's ``backend``, the rank's
-    ``device`` and its kernels' ``launches`` by name), in rank order.
+    ``device``, its kernels' ``launches`` by name and its host peak RSS
+    in KiB, ``host_peak_rss_kib``), in rank order.
     Raises, with the failed rank's log, as soon as a rank fails (a rank
     that cannot join fails before any collective); every process
     started here has ended when it returns or raises."""
@@ -161,6 +162,8 @@ def run_ranks(job: Job, world: int, workdir, timeout_s: float = 600.0):
 
 
 def _rank_main(job_path: str, rank: int, world: int) -> None:
+    import resource
+
     import torch.distributed as dist
 
     from smoothmesh_torch import kernels
@@ -189,7 +192,9 @@ def _rank_main(job_path: str, rank: int, world: int) -> None:
                    denormalized=sm.denormalize(), quality=sm.quality(),
                    setup_times=sm.setup_times, backend=dist.get_backend(),
                    device=str(sm.device),
-                   launches={k.name: k.launches for k in kernels.ALL})
+                   launches={k.name: k.launches for k in kernels.ALL},
+                   host_peak_rss_kib=resource.getrusage(
+                       resource.RUSAGE_SELF).ru_maxrss)
         with open(workdir / f"rank{rank}.pkl", "wb") as f:
             pickle.dump(out, f)
     finally:

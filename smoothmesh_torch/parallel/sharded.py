@@ -31,8 +31,9 @@ class ShardedSmoother(UnionSmoother):
 
     The single-device smoother on the union of the shards
     (:class:`~smoothmesh_torch.parallel.union.UnionSmoother`: the
-    arguments, ``device`` and ``distributed``, the points' layout and
-    ``setup_times`` are described there), with the disjoint exchanges
+    arguments, ``device``, ``distributed`` and ``devices=`` (the JAX
+    class's ``devices``), the points' layout and ``setup_times`` are
+    described there), with the disjoint exchanges
     and no owner mask, so each kernel launches once an iteration over
     all the shards (K3 too, whose shared rows are then recomputed with
     the exchanges).  The shards are built from the mesh as given, in
@@ -45,33 +46,38 @@ class ShardedSmoother(UnionSmoother):
     #: its first call
     _report_td = None
 
-    def _shards_of(self, mesh: PolyMesh, n_shards: int,
+    @staticmethod
+    def _shards_of(mesh: PolyMesh, n_shards: int,
                    times: dict) -> ShardedMesh:
         return build_shards(mesh, n_shards, times=times)
 
     def _set_exchange(self) -> None:
         un, idx = self.union, self._index
         owner = self._tensor(un.pair_owner, torch.bool)
-        D = self.shards.n_shards
-        if self.distributed:
+        if self.group is not None:
             self.sync = DistPointSync(idx(un.pair_rows), idx(un.pair_slots),
-                                      owner, un.shards[0], D, un.n_slots)
+                                      owner, un.n_slots, self.group)
         else:
             self.sync = UnionPointSync(idx(un.pair_rows),
                                        idx(un.pair_slots),
-                                       idx(un.pair_shard), owner, D,
-                                       un.n_slots)
+                                       idx(un.pair_shard), owner,
+                                       self.shards.n_shards, un.n_slots)
 
     def quality(self) -> dict:
         """The checkMesh-style report of the global mesh at the
         assembled points (as the JAX class gives it), with length- and
         volume-valued metrics in external units, on the global topology,
-        compiled and staged at the first call."""
+        compiled and staged at the first call.  In a group every member
+        assembles the points; a member that does not report (a card
+        group's but rank 0) returns None."""
+        q = self.points.detach().to("cpu", torch.float64).numpy()
+        ext = self.to_external_point_field(q)
+        if self.group is not None and not self.group.reports:
+            return None
         if self._report_td is None:
             self._report_td = to_device(
                 compile_topology(self.mesh), self.device,
                 quality_td_keys(self.device, self.dtype))
-        q = self.points.detach().to("cpu", torch.float64).numpy()
-        pts = self._tensor(self.to_external_point_field(q), self.dtype)
+        pts = self._tensor(ext, self.dtype)
         return self._external_units(quality_report(pts, self._report_td))
 

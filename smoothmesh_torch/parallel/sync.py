@@ -32,10 +32,12 @@ Two implementations, and neither falls back to the other:
     over it.  Nothing reads the host, so the batched driver captures
     the halo iteration into its CUDA graph as it does the single-device
     one.
-  - :class:`DistSync`: one shard a rank over ``torch.distributed``
-    (NCCL, one card a rank, or gloo); each exchange is one
-    ``all_reduce`` on an (S, ...) buffer of the S shared points, on the
-    field's device.
+  - :class:`DistSync`: one shard a member of a group, each member
+    running its own shard: a ``torch.distributed`` rank
+    (:class:`ProcessGroup`: NCCL, one card a rank, or gloo) or a host
+    thread of this process (``parallel.cards.CardGroup``, one device a
+    thread); each exchange is one ``all_reduce`` on an (S, ...) buffer
+    of the S shared points, on the field's device.
 
 Both write the owner's value plus +0.0 (the JAX ``psum`` of the owner's
 value with the other shards' zeros), so a -0.0 arrives as +0.0 on every
@@ -47,17 +49,54 @@ from __future__ import annotations
 import torch
 
 
-def _all_reduce(buf, op: str):
-    """``buf`` all-reduced in place over the default process group with
-    ``torch.distributed.ReduceOp`` ``op`` -> ``buf``."""
-    import torch.distributed as dist
+class ProcessGroup:
+    """The collectives of the shards' group over the default
+    ``torch.distributed`` process group, one member a rank.
 
-    dist.all_reduce(buf, op=getattr(dist.ReduceOp, op))
-    return buf
+    The interface of a group, which the other is
+    ``parallel.cards.CardGroup``'s members: ``rank`` and ``world``,
+    ``all_reduce(buf, op)`` (in place, ``op`` one of "SUM", "MAX",
+    "MIN"; -> ``buf``), ``all_gather_object(x)`` (-> the members'
+    objects in rank order), ``reports`` (whether this member returns a
+    report that one member computes alone: here every rank does) and
+    ``once(key, fn)`` (``fn()`` computed once for the members that share
+    this process: here each rank computes its own).
+    """
+
+    reports = True
+
+    @staticmethod
+    def once(key, fn):
+        return fn()
+
+    @property
+    def rank(self) -> int:
+        import torch.distributed as dist
+
+        return dist.get_rank()
+
+    @property
+    def world(self) -> int:
+        import torch.distributed as dist
+
+        return dist.get_world_size()
+
+    def all_reduce(self, buf, op: str):
+        import torch.distributed as dist
+
+        dist.all_reduce(buf, op=getattr(dist.ReduceOp, op))
+        return buf
+
+    def all_gather_object(self, x) -> list:
+        import torch.distributed as dist
+
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, x)
+        return out
 
 
-def _all_reduce_scalar(x, op: str):
-    return _all_reduce(x.reshape(1).clone(), op).reshape(())
+def _all_reduce_scalar(group, x, op: str):
+    return group.all_reduce(x.reshape(1).clone(), op).reshape(())
 
 
 class UnionSync:
@@ -101,28 +140,31 @@ class UnionSync:
 
 
 class DistSync:
-    """The exchanges of one shard a rank over ``torch.distributed``.
+    """The exchanges of one shard a member of ``group``.
 
     ``rows``: (K,) this shard's local rows that hold a shared point;
     ``slots``: (K,) their shared-point index in [0, S); ``owner``: (K,)
     bool, this shard owns the point.
 
-    Runs on the default process group, NCCL (each rank on its own card,
-    the buffers never leave it) or gloo (on the CPU, or ranks sharing
-    a card: gloo reduces CUDA tensors through the host).  Eager: the
-    batched driver does not capture its collectives into a CUDA graph
-    (under NCCL they are asynchronous on the stream, so the host does
-    not wait for them).  With no shared point (S = 0, as at world 1)
-    no exchange reduces anything, on either backend.
+    ``group``: a :class:`ProcessGroup` (the default; NCCL, each rank on
+    its own card, the buffers never leave it; or gloo, on the CPU or
+    ranks sharing a card: gloo reduces CUDA tensors through the host) or
+    a ``parallel.cards.CardGroup`` member (one host thread a device,
+    reducing the members' buffers in shard order).  Eager: the batched
+    driver does not capture its collectives into a CUDA graph (under
+    NCCL they are asynchronous on the stream, so the host does not wait
+    for them).  With no shared point (S = 0, as at world 1) no exchange
+    reduces anything.
     """
 
     capturable = False
 
-    def __init__(self, rows, slots, owner, n_slots: int):
+    def __init__(self, rows, slots, owner, n_slots: int, group=None):
         self.rows = rows
         self.slots = slots
         self.owner = owner
         self.n_slots = int(n_slots)
+        self.group = ProcessGroup() if group is None else group
 
     def consensus(self, field):
         dtype = field.dtype
@@ -132,7 +174,7 @@ class DistSync:
         buf = src.new_zeros((self.n_slots,) + tuple(src.shape[1:]))
         buf.index_copy_(0, self.slots, torch.where(own, v, 0))
         if self.n_slots:
-            _all_reduce(buf, "SUM")
+            self.group.all_reduce(buf, "SUM")
         out = src.index_copy(0, self.rows, buf.index_select(0, self.slots))
         return out.to(dtype)
 
@@ -142,15 +184,15 @@ class DistSync:
         buf.index_copy_(0, self.slots,
                         mask.index_select(0, self.rows).to(torch.int32))
         if self.n_slots:
-            _all_reduce(buf, "MAX")
+            self.group.all_reduce(buf, "MAX")
         return mask.index_copy(0, self.rows,
                                (buf > 0).index_select(0, self.slots))
 
     def all_max(self, x):
-        return _all_reduce_scalar(x, "MAX")
+        return _all_reduce_scalar(self.group, x, "MAX")
 
     def all_sum(self, x):
-        return _all_reduce_scalar(x, "SUM")
+        return _all_reduce_scalar(self.group, x, "SUM")
 
     sum = min_mag_sqr = consensus
 
@@ -384,23 +426,25 @@ class UnionPointSync(_PointSync):
 
 
 class DistPointSync(_PointSync):
-    """The disjoint exchanges of one shard a rank over
-    ``torch.distributed`` (NCCL or gloo, as :class:`DistSync`).
+    """The disjoint exchanges of one shard a member of ``group`` (as
+    :class:`DistSync`'s, the default process group by default).
 
     ``rows``, ``slots``, ``owner``: as :class:`UnionPointSync`'s, for
-    this rank's shard ``rank``.  Each rank writes its own row of a
-    (D, S, ...) buffer of zeros (its values, the null where it does not
-    hold a point) and one ``all_reduce`` SUM gives every rank every row
-    exactly (a -0.0 arrives as +0.0, as the union writes it); the fold
-    then runs locally.  Eager: the batched driver does not capture it.
+    this member's shard, the group's ``rank``.  Each member writes its
+    own row of a (D, S, ...) buffer of zeros (its values, the null where
+    it does not hold a point) and one ``all_reduce`` SUM gives every
+    member every row exactly (a -0.0 arrives as +0.0, as the union
+    writes it); the fold then runs locally.  Eager: the batched driver
+    does not capture it.
     """
 
     capturable = False
 
-    def __init__(self, rows, slots, owner, rank: int, n_shards: int,
-                 n_slots: int):
-        super().__init__(rows, slots, owner, n_shards, n_slots)
-        self.rank = int(rank)
+    def __init__(self, rows, slots, owner, n_slots: int, group=None):
+        group = ProcessGroup() if group is None else group
+        super().__init__(rows, slots, owner, group.world, n_slots)
+        self.rank = int(group.rank)
+        self.group = group
 
     def _candidates(self, v, null):
         dtype = v.dtype
@@ -410,14 +454,14 @@ class DistPointSync(_PointSync):
         buf[self.rank] = int(null) if dtype == torch.bool else null
         buf[self.rank].index_copy_(0, self.slots, src)
         if self.n_slots:
-            _all_reduce(buf, "SUM")
+            self.group.all_reduce(buf, "SUM")
         return buf.to(dtype)
 
     def all_max(self, x):
-        return _all_reduce_scalar(x, "MAX")
+        return _all_reduce_scalar(self.group, x, "MAX")
 
     def all_min(self, x):
-        return _all_reduce_scalar(x, "MIN")
+        return _all_reduce_scalar(self.group, x, "MIN")
 
     def all_sum(self, x):
-        return _all_reduce_scalar(x, "SUM")
+        return _all_reduce_scalar(self.group, x, "SUM")

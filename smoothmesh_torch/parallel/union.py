@@ -5,16 +5,19 @@ Both decompositions of :mod:`smoothmesh_torch.parallel` (the halo,
 :mod:`~smoothmesh_torch.parallel.sharded`) run the single-device
 iteration (``driver.iteration_body``) on every shard and add their
 cross-shard exchanges (:mod:`smoothmesh_torch.parallel.sync`).  Here
-the shards run in one of two ways:
+the shards run in one of three ways:
 
   - all on one device: the shards' tables are concatenated into one
     *union* topology (:func:`union_topology`), every entity id offset
     by its shard's base, so each kernel launches once an iteration over
     all the shards together, and the batched driver's CUDA graph
     carries the iteration with its exchanges;
-  - one shard a rank over ``torch.distributed``: the union of the
-    rank's shard alone, on the rank's own card under NCCL
-    (``parallel.ranks.join``), on the CPU or a shared card under gloo.
+  - one shard a member of a group, the union of the member's shard
+    alone on the member's device: a rank over ``torch.distributed``
+    (``sync.ProcessGroup``; on the rank's own card under NCCL,
+    ``parallel.ranks.join``, on the CPU or a shared card under gloo),
+    or a host thread of this process, one a device
+    (``parallel.cards``: ``devices=``).
 
 :class:`UnionSmoother` is the single-device ``Smoother`` on such a
 union, with the set-up the two decompositions share: the global layer
@@ -40,6 +43,7 @@ from smoothmesh_torch.io.polymesh import PolyMesh
 from smoothmesh_torch.mesh.topology import MeshTopology, compile_topology
 from smoothmesh_torch.params import SmoothingParams
 from smoothmesh_torch.parallel import scatter
+from smoothmesh_torch.parallel.sync import ProcessGroup
 from smoothmesh_torch.quality import MeshStats
 
 # ---------------------------------------------------------------------------
@@ -294,13 +298,27 @@ class UnionSmoother(Smoother):
 
     ``device``: ``"cuda"`` by default (raises without a card); ``"cpu"``
     runs the plain versions.  All shards run on it together, unless
-    ``distributed``: then ``torch.distributed`` must be initialized
-    (NCCL or gloo), ``n_shards`` is its world size, and this process
-    runs the shard of its rank on ``device`` (eagerly: its exchanges
-    are collectives, which the batched driver does not capture).  Under
-    NCCL that is the rank's card, the current device
-    (``parallel.ranks.join`` makes it so): ``"cuda"`` resolves to it,
-    and another card raises ``ValueError``.
+    the shards run one a member of a group (eagerly: the exchanges are
+    collectives, which the batched driver does not capture):
+
+      - ``distributed``: ``torch.distributed`` must be initialized
+        (NCCL or gloo), ``n_shards`` is its world size, and this
+        process runs the shard of its rank on ``device``.  Under NCCL
+        that is the rank's card, the current device
+        (``parallel.ranks.join`` makes it so): ``"cuda"`` resolves to
+        it, and another card raises ``ValueError``;
+      - ``devices=[...]`` (keyword; the JAX classes' ``devices``): one
+        shard on each device, in this process, one host thread a
+        device; more than one device returns a
+        :class:`~smoothmesh_torch.parallel.cards.CardSmoother` with
+        this class's surface (a device listed twice holds two shards,
+        each on its own stream), one device is the one member of a
+        group of one, in the caller's thread;
+      - ``group``: the member of a group this smoother is (what the
+        two above pass: a ``sync.ProcessGroup``, or a
+        ``parallel.cards.Member``, whose device it runs on).  A card
+        group's members build the shards, the layer maps and the
+        boundary classification once, for all of them.
 
     ``points`` is the union's (U, 3) internal points, the shards' rows
     one after another (``union.base``); :meth:`shard_points` gives the
@@ -310,14 +328,42 @@ class UnionSmoother(Smoother):
     topology compiles), the union and the upload.
     """
 
+    def __new__(cls, *args, devices=None, **kw):
+        if devices is not None and len(devices) > 1:
+            from smoothmesh_torch.parallel.cards import CardSmoother
+
+            return CardSmoother(cls, devices, *args, **kw)
+        return super().__new__(cls)
+
     def __init__(self, mesh: PolyMesh, params: SmoothingParams,
                  n_shards: Optional[int] = None, dtype=None,
                  normalize: bool = True, device=None,
-                 distributed: bool = False):
-        device = resolve_device(device)
-        if distributed:
-            device = _rank_device(device)
-        self._build(mesh, n_shards, distributed)
+                 distributed: bool = False, *, devices=None, group=None):
+        if devices is not None:
+            if device is not None or distributed or group is not None \
+                    or n_shards not in (None, 1):
+                raise ValueError("devices= places the shards: give no "
+                                 "device=, distributed=, group= or other "
+                                 "n_shards")
+            from smoothmesh_torch.parallel.cards import CardGroup
+
+            group = CardGroup([resolve_device(devices[0])]).members[0]
+        elif distributed:
+            if group is not None:
+                raise ValueError("distributed= is the process group: "
+                                 "give no group=")
+            group = ProcessGroup()
+        if group is None:
+            device = resolve_device(device)
+        elif isinstance(group, ProcessGroup):
+            device = _rank_device(resolve_device(device))
+        elif device is not None:
+            raise ValueError("a card-group member runs on its device: "
+                             "give no device=")
+        else:
+            device = group.device
+        self.group = group
+        self._build(mesh, n_shards)
         if normalize:
             center = mesh.points.mean(axis=0)
             scale = 1.0 / max(self.stats.min_edge_length, 1e-300)
@@ -329,15 +375,17 @@ class UnionSmoother(Smoother):
         if self._will_layer:
             self._setup_maps()
             sh = self.shards
-            self._set_layer(scatter.scatter_layer_maps(
-                self.layer_maps, sh.l2g,
-                scatter.g2l_maps(sh.l2g, mesh.n_points),
-                sh.n_padded_points)[0])
+            self._set_layer(self._once("layer blocks", lambda: (
+                scatter.scatter_layer_maps(
+                    self.layer_maps, sh.l2g,
+                    scatter.g2l_maps(sh.l2g, mesh.n_points),
+                    sh.n_padded_points)[0])))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         self.setup_times["upload"] += time.perf_counter() - self._t_upload
 
-    def _shards_of(self, mesh: PolyMesh, n_shards: int, times: dict):
+    @staticmethod
+    def _shards_of(mesh: PolyMesh, n_shards: int, times: dict):
         """The decomposition's host build of ``mesh`` into ``n_shards``
         shards (with ``n_local``, ``topos``, ``l2g``, ``owned``, the
         shared-point tables, the owner maps and the edge-length
@@ -349,14 +397,16 @@ class UnionSmoother(Smoother):
         (and the halo's ``owned``)."""
         raise NotImplementedError
 
-    def _build(self, mesh: PolyMesh, n_shards: Optional[int],
-               distributed: bool) -> None:
+    def _once(self, key, fn):
+        """``fn()``, once for the members of this smoother's card group
+        (each computes its own otherwise)."""
+        return fn() if self.group is None else self.group.once(key, fn)
+
+    def _build(self, mesh: PolyMesh, n_shards: Optional[int]) -> None:
         """The host part: the shards, their union and the mesh stats."""
         times = {}
-        if distributed:
-            import torch.distributed as dist
-
-            rank, world = dist.get_rank(), dist.get_world_size()
+        if self.group is not None:
+            rank, world = self.group.rank, self.group.world
             if n_shards not in (None, world):
                 raise ValueError(f"n_shards {n_shards} != world size "
                                  f"{world}")
@@ -365,7 +415,13 @@ class UnionSmoother(Smoother):
             n_shards = 1 if n_shards is None else int(n_shards)
             which = None
         t0 = time.perf_counter()
-        sh = self._shards_of(mesh, n_shards, times)
+
+        def build():
+            built = {}
+            return self._shards_of(mesh, n_shards, built), built
+
+        sh, built = self._once("shards", build)
+        times.update(built)
         times["shard build"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         self.union = union_topology(sh, which)
@@ -378,7 +434,6 @@ class UnionSmoother(Smoother):
         self.mesh = mesh
         self.mesh_internal = None
         self.shards = sh
-        self.distributed = bool(distributed)
         self._global_topo = None
         self.setup_times = times
 
@@ -433,10 +488,11 @@ class UnionSmoother(Smoother):
 
     def _global_setup(self) -> MeshTopology:
         """The global topology for the one-time set-up (layer maps,
-        boundary classification), compiled once; the boundary set-up
-        frees it."""
+        boundary classification), compiled once (once for a card
+        group's members); the boundary set-up frees it."""
         if self._global_topo is None:
-            self._global_topo = compile_topology(self.mesh)
+            self._global_topo = self._once(
+                "global topology", lambda: compile_topology(self.mesh))
         return self._global_topo
 
     def _setup_maps(self) -> None:
@@ -445,16 +501,20 @@ class UnionSmoother(Smoother):
         if self.layer_maps is not None:
             return
         self._stage_normals_tables()
-        topo = self._global_setup()
-        bn, sharp = lay.boundary_point_normals_np(self.mesh.points, topo)
-        self.layer_maps = lay.build_layer_maps(
-            topo, bn, sharp,
-            topo.patch_ids_matching(self.params.layer_patches),
-            topo.patch_ids_matching(self.params.smoothing_patches),
-            self.params.max_layers)
-        normals = scatter.restrict_vectors(self.layer_maps.normals_init,
-                                           self.shards.l2g,
-                                           self.shards.n_padded_points)
+
+        def host():
+            topo = self._global_setup()
+            bn, sharp = lay.boundary_point_normals_np(self.mesh.points, topo)
+            maps = lay.build_layer_maps(
+                topo, bn, sharp,
+                topo.patch_ids_matching(self.params.layer_patches),
+                topo.patch_ids_matching(self.params.smoothing_patches),
+                self.params.max_layers)
+            return maps, scatter.restrict_vectors(
+                maps.normals_init, self.shards.l2g,
+                self.shards.n_padded_points)
+
+        self.layer_maps, normals = self._once("layer maps", host)
         self.normals = self._tensor(self.union.rows(normals), self.dtype)
 
     def enable_boundary_smoothing(
@@ -477,21 +537,25 @@ class UnionSmoother(Smoother):
             check_edge_mesh_sanity(pts, edges, self.stats.min_edge_length,
                                    self.stats.perimeter)
         self._setup_maps()
-        topo = self._global_setup()
-        setup = classify_boundary_points(
-            topo, init_edge_points, init_edges,
-            target_edge_points, target_edges, surf_vertices, surf_tris,
-            topo.patch_ids_matching(self.params.layer_patches),
-            topo.patch_ids_matching(self.params.smoothing_patches),
-            self.mesh.points, self.params.distance_tolerance,
-            checkpoint_corner=checkpoint_corner,
-            checkpoint_feature=checkpoint_feature)
+
+        def host():
+            topo = self._global_setup()
+            setup = classify_boundary_points(
+                topo, init_edge_points, init_edges,
+                target_edge_points, target_edges, surf_vertices, surf_tris,
+                topo.patch_ids_matching(self.params.layer_patches),
+                topo.patch_ids_matching(self.params.smoothing_patches),
+                self.mesh.points, self.params.distance_tolerance,
+                checkpoint_corner=checkpoint_corner,
+                checkpoint_feature=checkpoint_feature)
+            g2ls = scatter.g2l_maps(sh.l2g, self.mesh.n_points)
+            return setup, scatter.scatter_boundary_setup(
+                setup, self.layer_maps, sh.l2g, g2ls, sh.topos,
+                sh.n_padded_points, self.transform, self._scale)
+
+        setup, (blocks, rep, scalars) = self._once("boundary", host)
         self.boundary_setup = setup
         self._global_topo = None
-        g2ls = scatter.g2l_maps(sh.l2g, self.mesh.n_points)
-        blocks, rep, scalars = scatter.scatter_boundary_setup(
-            setup, self.layer_maps, sh.l2g, g2ls, sh.topos,
-            sh.n_padded_points, self.transform, self._scale)
         self._set_boundary(blocks, rep, scalars["distance_tolerance"])
         return setup
 
@@ -509,25 +573,23 @@ class UnionSmoother(Smoother):
 
     def to_external_point_field(self, arr) -> np.ndarray:
         """A per-point array over the union rows -> the global mesh's
-        point order, each point from its owner's row (over the ranks
-        with ``distributed``: each rank writes its owned points into a
-        float64 field of zeros on its device, one all-reduce SUM adds
-        each point's one value to zeros, exactly, and the sum is copied
-        to the host once)."""
+        point order, each point from its owner's row (over a group's
+        members: each writes its owned points into a float64 field of
+        zeros on its device, one all-reduce SUM adds each point's one
+        value to zeros, exactly, and the sum is copied to the host
+        once)."""
         arr = np.asarray(arr)
         un = self.union
-        if not self.distributed:
+        if self.group is None:
             sh = self.shards
             rows = un.base[sh.point_owner_shard, 0] + sh.point_owner_local
             return arr[rows]
-        import torch.distributed as dist
-
         glob = torch.zeros((self.mesh.n_points,) + arr.shape[1:],
                            dtype=torch.float64, device=self.device)
         own = un.owned
         glob[self._index(un.l2g[own])] = self._tensor(arr[own],
                                                       torch.float64)
-        dist.all_reduce(glob, op=dist.ReduceOp.SUM)
+        self.group.all_reduce(glob, "SUM")
         return glob.cpu().numpy().astype(arr.dtype, copy=False)
 
     def _external_units(self, rep: dict) -> dict:

@@ -26,8 +26,12 @@ against the JAX package's (smoothmesh_tpu.parallel), on the CPU.
   the exchanges; batched steps bit-equal to one iteration a dispatch;
   the freeze-free run against the port's own Smoother with every
   holder of a shared point bit-identical; the quality report.
-- Smoother(n_devices=) delegation by the JAX rule, the refusal without
-  a card, the models registry and export_edges_as_stl.
+- ShardedSmoother(devices=["cpu"] * 3), one shard a host thread,
+  against the JAX class as above (tests/test_torch_cards.py holds it
+  bit-equal to the union).
+- Smoother(n_devices=) delegation by the JAX rule (on cuda one shard a
+  card), the refusal without a card, the models registry and
+  export_edges_as_stl.
 """
 
 import dataclasses
@@ -401,6 +405,21 @@ def test_sharded_matches_jax_f64(band):
                                atol=1e-9)
 
 
+def test_sharded_members_match_jax_f64():
+    """The slice of one shard a device in one process
+    (``devices=["cpu"] * 3``, three host threads) against the JAX class
+    on three devices."""
+    want, _, want_pts = _jax_sharded_run("60-120")
+    ss = ShardedSmoother(_parity_mesh(hex_block, perturb),
+                         _port_params("60-120"), devices=["cpu"] * 3,
+                         dtype=torch.float64)
+    assert len(ss.members) == 3
+    got = ss.steps(ITERS)
+    _assert_same_run(got, want)
+    np.testing.assert_allclose(ss.denormalize(), want_pts, rtol=0,
+                               atol=1e-9)
+
+
 def test_sharded_state_from_jax_matches():
     want, state, want_pts = _jax_sharded_run("60-120")
     ss = sharded_state_from_jax(
@@ -561,22 +580,27 @@ def test_smoother_n_devices_delegates(monkeypatch):
     assert type(s3) is ShardedSmoother and s3.shards.n_shards == 3
     h3 = Smoother(mesh, params, n_devices=3, use_tile_engine=True, **kw)
     assert type(h3) is HaloSmoother and h3.shards.n_shards == 3
-    # on the card in float32 the rule takes the halo, else the disjoint
+    # on the card in float32 the rule takes the halo, else the disjoint;
+    # on cuda one shard a card, cuda:0 and cuda:1, in this process
     made = []
     for mod, name in (("halo", "HaloSmoother"),
                       ("sharded", "ShardedSmoother")):
         monkeypatch.setattr(
             f"smoothmesh_torch.parallel.{mod}.{name}",
-            lambda *a, _n=name, **k: made.append((_n, k["dtype"])))
+            lambda *a, _n=name, **k: made.append((_n, k["dtype"],
+                                                  k["devices"])))
     monkeypatch.setattr(driver, "resolve_device",
                         lambda d: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     Smoother(mesh, params, n_devices=2)
     Smoother(mesh, params, n_devices=2, dtype=torch.float32)
     Smoother(mesh, params, n_devices=2, dtype=torch.float64)
     Smoother(mesh, params, n_devices=2, use_tile_engine=False)
-    assert made == [("HaloSmoother", None), ("HaloSmoother", torch.float32),
-                    ("ShardedSmoother", torch.float64),
-                    ("ShardedSmoother", None)]
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert made == [("HaloSmoother", None, cards),
+                    ("HaloSmoother", torch.float32, cards),
+                    ("ShardedSmoother", torch.float64, cards),
+                    ("ShardedSmoother", None, cards)]
 
 
 def test_n_devices_without_a_card_raises(monkeypatch):
