@@ -2684,16 +2684,18 @@ def memo_shards(classes):
     union it is held against start from the same shards, built once."""
     import unittest.mock
 
+    from smoothmesh_torch.tracing import Trace
+
     stack = contextlib.ExitStack()
     for cls in classes:
         build, cache = cls._shards_of, {}
 
-        def memo(mesh, n_shards, times, _build=build, _cache=cache):
+        def memo(mesh, n_shards, trace, _build=build, _cache=cache):
             key = (id(mesh), n_shards)
             if key not in _cache:
-                built = {}
+                built = Trace()
                 _cache[key] = (mesh, _build(mesh, n_shards, built), built)
-            times.update(_cache[key][2])
+            trace.merge(_cache[key][2])
             return _cache[key][1]
 
         stack.enter_context(unittest.mock.patch.object(

@@ -48,6 +48,7 @@ from smoothmesh_torch.device import resolve_device
 from smoothmesh_torch.io.case import FoamCase
 from smoothmesh_torch.mesh.topology import boundary_point_mask
 from smoothmesh_torch.params import SmoothingParams
+from smoothmesh_torch.tracing import profiled
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -109,7 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
       "float32 runs the CUDA kernels, float64 their plain PyTorch "
       "versions on the card")
     a("-profileDir", "--profileDir", default=None,
-      help="capture a torch.profiler trace of the smoothing loop")
+      help="capture a torch.profiler trace of the set-up and the "
+      "smoothing loop")
     a("-checkMesh", "--checkMesh", action="store_true",
       help="print a checkMesh-style quality report after smoothing")
     a("-allowRayMiss", "--allowRayMiss", action="store_true",
@@ -184,7 +186,20 @@ def main(argv: Sequence[str] = None) -> int:
 def _smooth(args, device: torch.device, n_shards, distributed: bool) -> int:
     """The run of :func:`main` from the parsed options; ``n_shards``:
     None on one device, else -parallel's shard count (over the ranks
-    with ``distributed``, where only rank 0 writes)."""
+    with ``distributed``, where only rank 0 writes).  ``-profileDir``
+    traces this thread's set-up, loop and report, so the smoother's
+    ``smoothmesh::`` spans show beside the device's operations; a card
+    group's members run in threads of their own, so there it traces
+    member 0's loop (``CardSmoother.run``)."""
+    cards = (n_shards is not None and n_shards > 1 and not distributed
+             and device.type == "cuda")
+    with profiled(None if cards else args.profileDir, device):
+        return _smooth_case(args, device, n_shards, distributed,
+                            args.profileDir if cards else None)
+
+
+def _smooth_case(args, device: torch.device, n_shards, distributed: bool,
+                 loop_profile_dir) -> int:
     case = FoamCase(args.case)
     delta_t = case.delta_t()
     if delta_t < 1e-30:
@@ -379,7 +394,7 @@ def _smooth(args, device: torch.device, n_shards, distributed: bool) -> int:
         print(f"Writing new mesh to time {t:g} ({out})")
         print()
 
-    smoother.run(on_write=on_write, profile_dir=args.profileDir)
+    smoother.run(on_write=on_write, profile_dir=loop_profile_dir)
 
     if args.checkMesh:
         rep = smoother.quality()

@@ -19,6 +19,7 @@ import torch
 from smoothmesh_torch.driver import Smoother
 from smoothmesh_torch.mesh.topology import MeshTopology
 from smoothmesh_torch.params import SmoothingParams
+from smoothmesh_torch.tracing import Trace
 
 
 def state_from_jax(points, topo_arrays: Mapping, params: Mapping, center,
@@ -51,6 +52,7 @@ def state_from_jax(points, topo_arrays: Mapping, params: Mapping, center,
     resolved = SmoothingParams(**{k: v for k, v in params.items()
                                   if k in pfields})
     sm = Smoother.__new__(Smoother)
+    sm.trace = Trace()
     sm.mesh = sm.mesh_internal = sm.stats = None
     sm._setup(topo, np.asarray(points, dtype=np.float64), resolved,
               center, scale, device, dtype, orders=None)
@@ -140,6 +142,7 @@ def _union_state_from_jax(cls, mesh, n_shards, points, params, center,
     resolved = SmoothingParams(**{k: v for k, v in params.items()
                                   if k in pfields})
     sm = cls.__new__(cls)
+    sm.trace = Trace()
     sm.group = None
     sm._build(mesh, n_shards)
     un = sm.union

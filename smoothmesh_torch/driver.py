@@ -68,6 +68,7 @@ from smoothmesh_torch.ops import constraints, raycast, smoothing
 from smoothmesh_torch.params import SmoothingParams
 from smoothmesh_torch.quality import (mesh_stats, quality_report,
                                      quality_td_keys)
+from smoothmesh_torch.tracing import StageClock, Trace, profiled
 
 
 @dataclasses.dataclass
@@ -166,7 +167,7 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
                    stages: Stages = KERNEL_STAGES, normals=None,
                    smoothing_surface=None, layer=None, bnd=None,
                    fixed_point: bool = True, skip=None, sync=None,
-                   owned=None) -> Iteration:
+                   owned=None, mark=None, stats=None) -> Iteration:
     """One smoothing iteration (reference src/smoothMesh.C:2257-2437)
     -> (new points, normals, residual, frozen count, ray-miss count,
     face-angle active count) (:class:`Iteration`), the scalars as 0-d
@@ -185,6 +186,11 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
     reverts.  ``skip``: a 0-d bool tensor; where it holds, every point
     reverts (the points pass through bit for bit).  With
     ``fixed_point=False`` no step of it reads the host.
+
+    ``mark``: None, or called with a stage's name where the stage ends
+    (``tracing.StageClock.mark``; the caller marks the start and
+    ``iter.commit`` after its own writes).  ``stats``: None, or a dict
+    that receives the face-angle fixed point's active count and sweeps.
 
     ``sync`` and ``owned``: a domain decomposition's exchange
     (:mod:`smoothmesh_torch.parallel.sync`) and (N,) owner mask, or
@@ -218,13 +224,18 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
     frozen = torch.zeros(points.shape[0], dtype=torch.bool,
                          device=points.device)
 
+    if mark is None:
+        mark = _unmarked
     fg = stages.face_geometry(points, td["face_points"], td["face_mask"],
                               td["face_npoints"])
     if layer is not None or bnd is not None:
+        mark("iter.geometry")
         # stateful normals (reference :2266), from K1's area vectors
         normals, is_sharp = lay.accumulate_point_normals(normals, fg.areas,
                                                          td, sync)
+        mark("iter.normals")
     cell_ctrs, _ = stages.cell_centres_vols(fg, td)
+    mark("iter.geometry")
     prop, _ = stages.predictor(points, cell_ctrs, td, max_step,
                                p.rel_step_frac, bnd is not None)
     if sync is not None and owned is not None:
@@ -237,6 +248,7 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
         prop = smoothing.predict_shared_rows(
             prop, points, cell_ctrs, td, max_step, p.rel_step_frac,
             bnd is not None, sync)
+    mark("iter.predictor")
 
     if layer is not None:
         outer = lay.update_neigh_coords(points, layer["outer_map"], sync)
@@ -246,6 +258,7 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
             p.layer_expansion_ratio, p.min_layers, p.max_layers + 1)
         prop = smoothing.constrain_max_step_length(points, prop, max_step,
                                                    p.rel_step_frac)
+        mark("iter.layer_blend")
 
     n_ray_miss = 0
     if bnd is not None:
@@ -261,6 +274,7 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
             p.internal_smoothing_blending_fraction)
         prop = smoothing.constrain_max_step_length(points, prop, max_step,
                                                    p.rel_step_frac)
+        mark("iter.boundary_projection")
 
     frozen = stages.freeze_constraints(
         points, prop, td, min_edge, p.total_min_freeze, p.min_angle_rad,
@@ -269,6 +283,7 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
         # the halo: stage-S decisions hold only where the stencil is
         # complete
         frozen = sync.or_(frozen & owned)
+    mark("iter.freeze")
     n_active = None
     if p.face_angle_constraint:
         # as the JAX driver's tile branch (smoothmesh_tpu/driver.py:321-327)
@@ -277,11 +292,12 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
             frozen = constraints.restrict_face_angle_deterioration(
                 points, cell_ctrs, prop, td, p.min_angle_rad,
                 p.max_angle_rad, frozen, fc_base=fg.means, cur_minmax=cur,
-                u_space=True, eligible=owned)
+                u_space=True, eligible=owned, stats=stats)
         else:
             n_active = constraints.face_angle_band(
                 *cur, p.min_angle_rad, p.max_angle_rad, u_space=True,
                 guarded=True, eligible=owned).active.sum()
+        mark("iter.face_angle")
     if sync is not None:
         # the shard-local fixed point's freezes, of replicas too
         frozen = sync.or_(frozen)
@@ -310,6 +326,21 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
                      n_active)
 
 
+def _unmarked(name) -> None:
+    pass
+
+
+def fixed_point_reads(stats: dict) -> int:
+    """The host reads of one face-angle fixed point, from the ``stats``
+    it filled, as ``restrict_face_angle_deterioration`` counts them: one
+    when no point is active, else one for the band, one for the self
+    phase and one a pair sweep; 0 where it did not run (``stats``
+    empty)."""
+    if not stats:
+        return 0
+    return 1 if stats["active"] == 0 else 2 + stats["sweeps"]
+
+
 class _Batch:
     """Up to ``iter_batch`` iterations a dispatch with one host read.
 
@@ -327,6 +358,12 @@ class _Batch:
     (:class:`kernels.Graph`) on the buffers held here and replayed; on
     the CPU, and with an exchange that cannot be captured (a group's,
     ``parallel.sync.DistSync``), it runs eagerly.
+
+    :meth:`run` times its parts as the smoother's ``batch.*`` spans and
+    counts its read in ``host_reads``.  With stage timing
+    (``Smoother.time_stages``) the iteration marks its stages on a
+    :class:`tracing.StageClock` (in the graph: event nodes), and each
+    run adds its last iteration's stage times to the trace.
     """
 
     #: the record's columns (float64; counts are exact)
@@ -342,11 +379,16 @@ class _Batch:
         self.slot = torch.zeros(1, dtype=torch.int64, device=dev)
         self.record = torch.zeros((sm.iter_batch, len(self.RECORD)),
                                   dtype=torch.float64, device=dev)
+        self.trace = sm.trace
+        self.clock = StageClock(dev) if sm.stage_timing else None
         self._args = (sm.td, sm.params, sm._scale)
         self._kw = dict(smoothing_surface=sm.smoothing_surface,
                         layer=sm.layer, bnd=sm.bnd, sync=sm.sync,
-                        owned=sm.owned)
+                        owned=sm.owned,
+                        mark=None if self.clock is None else self.clock.mark)
         self._fatal = bool(sm.params.ray_miss_fatal) and sm.bnd is not None
+        #: the last run's wall, reset to read (ms)
+        self.wall_ms = 0.0
         capturable = sm.sync is None or sm.sync.capturable
         self.graph = None
         if dev.type == "cuda" and capturable:
@@ -355,6 +397,9 @@ class _Batch:
             self.graph = kernels.Graph(self._iteration, dev)
 
     def _iteration(self) -> None:
+        clock = self.clock
+        if clock is not None:
+            clock.start()
         done = self.done
         it = iteration_body(self.points, *self._args, normals=self.normals,
                             fixed_point=False, skip=done, **self._kw)
@@ -377,20 +422,31 @@ class _Batch:
             self.normals.copy_(torch.where(commit, it.normals,
                                            self.normals))
         self.done.copy_(done | fa_stop | stop)
+        if clock is not None:
+            clock.mark("iter.commit")
 
     def run(self, points, normals, n: int) -> list:
         """``n`` iterations from ``points``/``normals`` -> the record's
         first ``n`` rows, read to the host (the batch's one read)."""
-        self.points.copy_(points)
-        self.normals.copy_(normals)
-        self.done.zero_()
-        self.slot.zero_()
-        for _ in range(n):
-            if self.graph is not None:
-                self.graph.replay()
-            else:
-                self._iteration()
-        return self.record[:n].tolist()            # host sync
+        tr = self.trace
+        with tr.span("batch.reset") as reset:
+            self.points.copy_(points)
+            self.normals.copy_(normals)
+            self.done.zero_()
+            self.slot.zero_()
+        with tr.span("batch.replay"):
+            for _ in range(n):
+                if self.graph is not None:
+                    self.graph.replay()
+                else:
+                    self._iteration()
+        with tr.span("batch.read") as read:
+            rows = self.record[:n].tolist()            # host sync
+        tr.count("host_reads")
+        self.wall_ms = (read.end_ns - reset.start_ns) * 1e-6
+        if self.clock is not None and n:
+            self.clock.record(tr)
+        return rows
 
 
 class _Delegating(type):
@@ -489,6 +545,10 @@ class Smoother(metaclass=_Delegating):
     captured as a CUDA graph, captured again when the tables,
     parameters or state it captured are replaced.  <= 1 runs one
     iteration a dispatch.  :meth:`step` always runs one.
+
+    ``trace`` (:class:`tracing.Trace`): the set-up's and the loop's
+    spans and counters; :meth:`time_stages` adds the iteration's stages
+    timed on the device.
     """
 
     def __init__(self, mesh: PolyMesh, params: SmoothingParams,
@@ -496,13 +556,17 @@ class Smoother(metaclass=_Delegating):
                  device=None, normalize: bool = True,
                  n_devices: Optional[int] = None,
                  use_tile_engine: Optional[bool] = None):
+        self.trace = tr = Trace()
         device = resolve_device(device)
         orders = None
         mesh_int = mesh
         if topo is None:
-            mesh_int, orders = permute_mesh(mesh)
-            topo = compile_topology(mesh_int)
-        stats = mesh_stats(mesh_int.points, topo.edges)
+            with tr.span("setup.reorder"):
+                mesh_int, orders = permute_mesh(mesh)
+            with tr.span("setup.topology"):
+                topo = compile_topology(mesh_int)
+        with tr.span("setup.stats"):
+            stats = mesh_stats(mesh_int.points, topo.edges)
         if normalize:
             center = mesh_int.points.mean(axis=0)
             scale = 1.0 / max(stats.min_edge_length, 1e-300)
@@ -511,9 +575,10 @@ class Smoother(metaclass=_Delegating):
         self.mesh = mesh
         self.mesh_internal = mesh_int
         self.stats = stats
-        self._setup(topo, (mesh_int.points - center) * scale,
-                    params.resolve(stats.min_edge_length), center, scale,
-                    device, dtype, orders)
+        with tr.span("setup.upload"):
+            self._setup(topo, (mesh_int.points - center) * scale,
+                        params.resolve(stats.min_edge_length), center,
+                        scale, device, dtype, orders)
         if self._will_layer:
             self._setup_maps()
             self.layer = {
@@ -525,7 +590,8 @@ class Smoother(metaclass=_Delegating):
                dtype, orders: Optional[MeshOrders]) -> None:
         """Device state from host state; ``points`` are internal
         (normalized) coordinates and ``params`` are resolved.  Layers
-        and boundary smoothing start off (no maps)."""
+        and boundary smoothing start off (no maps).  The tables' packing
+        on the card may still run when it returns."""
         device = resolve_device(device)
         dtype = torch.float32 if dtype is None else dtype
         # float32 takes the kernels on the card, float64 their plain
@@ -560,6 +626,9 @@ class Smoother(metaclass=_Delegating):
         self._batch = None
         #: batches that stopped at a face-angle stop
         self.face_angle_stops = 0
+        #: whether the iteration's stages are timed (:meth:`time_stages`)
+        self.stage_timing = False
+        self._clock = None
 
     def _tensor(self, a, dtype) -> torch.Tensor:
         return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -576,15 +645,17 @@ class Smoother(metaclass=_Delegating):
         boundary smoothing."""
         if self.layer_maps is not None:
             return
-        self._stage_normals_tables()
-        bn, sharp = geo.boundary_point_normals(self.points, self.td)
-        smoothing_ids = self.topo.patch_ids_matching(
-            self.params.smoothing_patches)
-        self.layer_maps = lay.build_layer_maps(
-            self.topo, bn.to("cpu", torch.float64).numpy(),
-            sharp.cpu().numpy(), self._layer_ids, smoothing_ids,
-            self.params.max_layers)
-        self.normals = self._tensor(self.layer_maps.normals_init, self.dtype)
+        with self.trace.span("setup.layer_maps"):
+            self._stage_normals_tables()
+            bn, sharp = geo.boundary_point_normals(self.points, self.td)
+            smoothing_ids = self.topo.patch_ids_matching(
+                self.params.smoothing_patches)
+            self.layer_maps = lay.build_layer_maps(
+                self.topo, bn.to("cpu", torch.float64).numpy(),
+                sharp.cpu().numpy(), self._layer_ids, smoothing_ids,
+                self.params.max_layers)
+            self.normals = self._tensor(self.layer_maps.normals_init,
+                                        self.dtype)
 
     def transform(self, pts: np.ndarray) -> np.ndarray:
         """External coordinates -> internal normalized coordinates."""
@@ -628,45 +699,47 @@ class Smoother(metaclass=_Delegating):
         self._setup_maps()
         smoothing_ids = self.topo.patch_ids_matching(
             self.params.smoothing_patches)
-        setup = bps.classify_boundary_points(
-            self.topo, init_edge_points, init_edges,
-            target_edge_points, target_edges,
-            surf_vertices, surf_tris,
-            self._layer_ids, smoothing_ids,
-            self.mesh_internal.points, self.params.distance_tolerance,
-            checkpoint_corner=checkpoint_corner,
-            checkpoint_feature=checkpoint_feature,
-        )
+        with self.trace.span("setup.boundary.classify"):
+            setup = bps.classify_boundary_points(
+                self.topo, init_edge_points, init_edges,
+                target_edge_points, target_edges,
+                surf_vertices, surf_tris,
+                self._layer_ids, smoothing_ids,
+                self.mesh_internal.points, self.params.distance_tolerance,
+                checkpoint_corner=checkpoint_corner,
+                checkpoint_feature=checkpoint_feature,
+            )
         self.boundary_setup = setup
-        t = self.transform
-        internal = self.topo.is_internal_point
-        tep, te = setup.target_edge_points, setup.target_edges
-        self.bnd = self._bnd_tables(dict(
-            is_corner=setup.is_corner,
-            is_feature_edge=setup.is_feature_edge,
-            is_smoothing_surface=setup.is_smoothing_surface,
-            is_connected=setup.is_connected,
-            smoothing_surface=setup.is_smoothing_surface,
-            corner_targets=t(setup.corner_targets),
-            point_strings=setup.point_strings,
-            feat_neigh=setup.feat_neigh,
-            feat_neigh_mask=setup.feat_neigh_mask,
-            edge_a=t(tep[te[:, 0]]),
-            edge_b=t(tep[te[:, 1]]),
-            edge_strings=setup.target_edge_strings,
-            tri_a=t(setup.surf_tri_a),
-            tri_b=t(setup.surf_tri_b),
-            tri_c=t(setup.surf_tri_c),
-            distance_tolerance=setup.distance_tolerance * self._scale,
-            inner_map=self.layer_maps.inner_map,
-            # static compaction sets (the classification is fixed after
-            # set-up): feature points with projection neighbours, and
-            # the free smoothing-surface ray-cast candidates
-            feat_rows=np.where(setup.feat_neigh_mask.any(axis=1))[0],
-            surf_rows=np.where(setup.is_smoothing_surface & ~internal
-                               & ~setup.is_corner
-                               & ~setup.is_feature_edge)[0],
-        ))
+        with self.trace.span("setup.boundary.tables"):
+            t = self.transform
+            internal = self.topo.is_internal_point
+            tep, te = setup.target_edge_points, setup.target_edges
+            self.bnd = self._bnd_tables(dict(
+                is_corner=setup.is_corner,
+                is_feature_edge=setup.is_feature_edge,
+                is_smoothing_surface=setup.is_smoothing_surface,
+                is_connected=setup.is_connected,
+                smoothing_surface=setup.is_smoothing_surface,
+                corner_targets=t(setup.corner_targets),
+                point_strings=setup.point_strings,
+                feat_neigh=setup.feat_neigh,
+                feat_neigh_mask=setup.feat_neigh_mask,
+                edge_a=t(tep[te[:, 0]]),
+                edge_b=t(tep[te[:, 1]]),
+                edge_strings=setup.target_edge_strings,
+                tri_a=t(setup.surf_tri_a),
+                tri_b=t(setup.surf_tri_b),
+                tri_c=t(setup.surf_tri_c),
+                distance_tolerance=setup.distance_tolerance * self._scale,
+                inner_map=self.layer_maps.inner_map,
+                # static compaction sets (the classification is fixed after
+                # set-up): feature points with projection neighbours, and
+                # the free smoothing-surface ray-cast candidates
+                feat_rows=np.where(setup.feat_neigh_mask.any(axis=1))[0],
+                surf_rows=np.where(setup.is_smoothing_surface & ~internal
+                                   & ~setup.is_corner
+                                   & ~setup.is_feature_edge)[0],
+            ))
         self.smoothing_surface = self.bnd["smoothing_surface"]
         return setup
 
@@ -717,18 +790,31 @@ class Smoother(metaclass=_Delegating):
     # -- the iteration loop ------------------------------------------------
     def _iterate(self):
         """One iteration, counted -> (its StepResult, the new points and
-        normals, uncommitted), with one host read."""
-        t0 = time.perf_counter()
-        new_points, normals, res, n_frozen, n_miss, _ = iteration_body(
-            self.points, self.td, self.params, self._scale,
-            normals=self.normals, smoothing_surface=self.smoothing_surface,
-            layer=self.layer, bnd=self.bnd, sync=self.sync, owned=self.owned)
-        scalars = [res.double(), n_frozen.double()]
-        if self.bnd is not None:
-            scalars.append(n_miss.double())
-        res, n_frozen, *miss = torch.stack(scalars).tolist()  # host sync
+        normals, uncommitted), with one host read (and the face-angle
+        fixed point's): a batch of one, run eagerly, timed as the
+        ``batch.replay`` and ``batch.read`` spans."""
+        tr, clock, fp = self.trace, self._clock, {}
+        with tr.span("batch.replay") as replay:
+            if clock is not None:
+                clock.start()
+            new_points, normals, res, n_frozen, n_miss, _ = iteration_body(
+                self.points, self.td, self.params, self._scale,
+                normals=self.normals,
+                smoothing_surface=self.smoothing_surface, layer=self.layer,
+                bnd=self.bnd, sync=self.sync, owned=self.owned,
+                mark=None if clock is None else clock.mark, stats=fp)
+            scalars = [res.double(), n_frozen.double()]
+            if self.bnd is not None:
+                scalars.append(n_miss.double())
+            if clock is not None:
+                clock.mark("iter.commit")
+        with tr.span("batch.read") as read:
+            res, n_frozen, *miss = torch.stack(scalars).tolist()  # host sync
+        tr.count("host_reads", 1 + fixed_point_reads(fp))
+        if clock is not None:
+            clock.record(tr)
         self._iteration += 1
-        wall = (time.perf_counter() - t0) * 1e3
+        wall = (read.end_ns - replay.start_ns) * 1e-6
         return (StepResult(self._iteration, res, int(n_frozen), wall,
                            int(miss[0]) if miss else 0),
                 new_points, normals)
@@ -760,20 +846,25 @@ class Smoother(metaclass=_Delegating):
         A batch stops at an iteration that finds points in the
         face-angle band (:class:`_Batch`); the host runs that iteration
         with the fixed point, and the rest of this call one iteration a
-        dispatch."""
+        dispatch.
+
+        A batch's wall (``StepResult.wall_ms`` times the iterations that
+        ran in it) is its ``batch.reset``, ``batch.replay`` and
+        ``batch.read`` spans, dispatch to host read; a batch built
+        here (``setup.capture``) is not in it."""
         if self.iter_batch <= 1:
             return self._steps_one_by_one(n)
         out = []
         while n > 0:
-            t0 = time.perf_counter()
             batch = self._ensure_batch()
             m = min(n, self.iter_batch)
             rows = batch.run(self.points, self.normals, m)
-            wall = (time.perf_counter() - t0) * 1e3
+            wall = batch.wall_ms
             ran = [r for r in rows if r[3]]
             if ran:
-                self.points = batch.points.clone()
-                self.normals = batch.normals.clone()
+                with self.trace.span("batch.commit"):
+                    self.points = batch.points.clone()
+                    self.normals = batch.normals.clone()
             for res, n_frozen, n_miss, _, _ in ran:
                 self._iteration += 1
                 out.append(StepResult(self._iteration, res, int(n_frozen),
@@ -806,18 +897,31 @@ class Smoother(metaclass=_Delegating):
         key = (id(self.td), id(self.bnd), id(self.layer),
                id(self.smoothing_surface), id(self.sync), id(self.owned),
                repr(self.params), self._scale,
-               self.dtype, self.device, self.iter_batch)
+               self.dtype, self.device, self.iter_batch, self.stage_timing)
         if self._batch is None or self._batch.key != key:
             self._batch = None          # free the old graph's pool first
-            self._batch = _Batch(self, key)
+            with self.trace.span("setup.capture"):
+                self._batch = _Batch(self, key)
         return self._batch
 
     def prepare_batch(self) -> float:
         """Build (on the card: warm up and capture) the batch that
-        :meth:`steps` will run, ahead of it -> the seconds it took."""
-        t0 = time.perf_counter()
+        :meth:`steps` will run, ahead of it -> the seconds it took (its
+        ``setup.capture`` span; 0.0 where it was built already).  The
+        warm-up's work may still run on the card when it returns."""
+        before = self.trace.total("setup.capture")
         self._ensure_batch()
-        return time.perf_counter() - t0
+        return self.trace.total("setup.capture") - before
+
+    def time_stages(self, on: bool) -> None:
+        """Time the iteration's stages on the device (``iter.*`` spans of
+        :attr:`trace`, one sample a batch or an iteration run one a
+        dispatch: its last iteration), or stop.  On the card each stage
+        boundary is a timing event; the batch captured with them is
+        another graph than the one without (its key holds the
+        setting), which records no event."""
+        self.stage_timing = bool(on)
+        self._clock = StageClock(self.device) if on else None
 
     def run(self, log: Optional[Callable[[str], None]] = print,
             on_write: Optional[Callable[[int, np.ndarray], None]] = None,
@@ -832,17 +936,7 @@ class Smoother(metaclass=_Delegating):
         """
         t0 = time.time()
         iter_ms = []
-        if profile_dir:
-            from torch.profiler import (ProfilerActivity, profile,
-                                        tensorboard_trace_handler)
-
-            acts = [ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                acts.append(ProfilerActivity.CUDA)
-            trace = tensorboard_trace_handler(profile_dir)
-            with profile(activities=acts, on_trace_ready=trace):
-                result = self._run_loop(log, on_write, iter_ms)
-        else:
+        with profiled(profile_dir, self.device):
             result = self._run_loop(log, on_write, iter_ms)
         if log:
             # the first batch (or iteration) carries the kernels'

@@ -259,19 +259,20 @@ class CardSmoother:
     ``UnionSmoother``) of one shard on its device, the shards built
     once on the host.  The surface is the classes': :meth:`steps`,
     :meth:`step`, :meth:`run`, :meth:`enable_boundary_smoothing`,
-    :meth:`quality`, :meth:`denormalize`, :meth:`shard_points`,
-    :attr:`points` and :attr:`setup_times`; each call runs in every
-    member at once and returns rank 0's result (the residuals and the
-    counts are all-reduced, so every member's record is equal).
-    ``params``, ``stats``, ``mesh``, ``shards``, ``topo`` (rank 0's
-    union; its patches are the mesh's), ``dtype``, ``n_points``,
-    ``iter_batch``, ``boundary_setup``, ``layer`` and ``bnd`` are rank
-    0's.  On ``cuda`` float32 every kernel is built before the members
-    start.
+    :meth:`time_stages`, :meth:`quality`, :meth:`denormalize`,
+    :meth:`shard_points`, :attr:`points` and :attr:`setup_times`;
+    each call runs in every member at once and returns rank 0's result
+    (the residuals and the counts are all-reduced, so every member's
+    record is equal).  ``params``, ``stats``, ``mesh``, ``shards``,
+    ``topo`` (rank 0's union; its patches are the mesh's), ``dtype``,
+    ``n_points``, ``iter_batch``, ``boundary_setup``, ``layer``, ``bnd``
+    and ``trace`` are rank 0's.  On ``cuda`` float32 every kernel is
+    built before the members start.
     """
 
     _SHARED = ("params", "stats", "mesh", "shards", "topo", "dtype",
-               "n_points", "iter_batch", "boundary_setup", "layer", "bnd")
+               "n_points", "iter_batch", "boundary_setup", "layer", "bnd",
+               "trace")
 
     def __init__(self, cls, devices: Sequence, mesh, params, n_shards=None,
                  dtype=None, normalize: bool = True, device=None,
@@ -327,6 +328,10 @@ class CardSmoother:
     def enable_boundary_smoothing(self, *args, **kw):
         return self._each(
             lambda sm: sm.enable_boundary_smoothing(*args, **kw))[0]
+
+    def time_stages(self, on: bool) -> None:
+        for sm in self.members:
+            sm.time_stages(on)
 
     # -- results -----------------------------------------------------------
     def quality(self) -> dict:

@@ -27,7 +27,6 @@ compiler.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -47,6 +46,7 @@ from smoothmesh_torch.parallel.union import (UnionSmoother, _pad_rows,
 from smoothmesh_torch.parallel.union import union_topology  # noqa: F401
 from smoothmesh_torch.quality import (combine_quality_parts,
                                       quality_report_parts, quality_td_keys)
+from smoothmesh_torch.tracing import Trace
 
 KB = 2048   # entity-count rounding of the padded shards (the JAX package's)
 
@@ -92,15 +92,15 @@ class HaloShards:
 
 def build_halo_shards(mesh: PolyMesh, n_shards: int,
                       cell_shard: Optional[np.ndarray] = None,
-                      times: Optional[dict] = None) -> HaloShards:
+                      trace: Optional[Trace] = None) -> HaloShards:
     """The halo shards of ``mesh`` (the JAX package's
     ``build_halo_shards``, same arrays): each shard's submesh spatially
     reordered and compiled, padded to common entity counts (multiples
     of :data:`KB`) and widths, with the shared-point routing, the
     quality claims and the edge-length extremes.  ``is_internal_point``
     comes from the global mesh: a shard's own compile sees its
-    ``procBoundary`` faces as boundary.  ``times``: a dict that
-    receives the seconds of the topology compiles (``"compiles"``)."""
+    ``procBoundary`` faces as boundary.  ``trace``: receives the
+    topology compiles as ``setup.compiles`` spans."""
     if cell_shard is None:
         cell_shard = partition_cells(mesh, n_shards)
     D = n_shards
@@ -138,14 +138,13 @@ def build_halo_shards(mesh: PolyMesh, n_shards: int,
     pts_list, owned_list = [], []
     claims_raw: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
     min_edge, max_edge = np.inf, 0.0
-    t_compile = 0.0
+    trace = Trace() if trace is None else trace
 
     for d in range(D):
         lmesh, gids, _cells = extract_submesh(mesh, local[d], face_patch)
         pmesh, orders = permute_mesh(lmesh)
-        t0 = time.perf_counter()
-        topo = compile_topology(pmesh)
-        t_compile += time.perf_counter() - t0
+        with trace.span("setup.compiles"):
+            topo = compile_topology(pmesh)
         gids_perm = gids[orders.point_old]     # new local idx -> global
         topo.is_internal_point = global_internal[gids_perm]
         elen = np.linalg.norm(
@@ -167,8 +166,6 @@ def build_halo_shards(mesh: PolyMesh, n_shards: int,
         l2g.append(gids_perm)
         pts_list.append(pmesh.points)
         owned_list.append(point_owner[gids_perm] == d)
-    if times is not None:
-        times["compiles"] = t_compile
 
     n_pts = _round_kb(max(t.n_points for t in topos_raw))
     n_cls = _round_kb(max(t.n_cells for t in topos_raw))
@@ -259,8 +256,8 @@ class HaloSmoother(UnionSmoother):
 
     @staticmethod
     def _shards_of(mesh: PolyMesh, n_shards: int,
-                   times: dict) -> HaloShards:
-        return build_halo_shards(mesh, n_shards, times=times)
+                   trace: Trace) -> HaloShards:
+        return build_halo_shards(mesh, n_shards, trace=trace)
 
     def _set_exchange(self) -> None:
         un, idx = self.union, self._index

@@ -25,7 +25,6 @@ boundary.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -34,6 +33,7 @@ from smoothmesh_torch.io.polymesh import Patch, PolyMesh
 from smoothmesh_torch.mesh.topology import (MeshTopology,
                                             boundary_point_mask,
                                             compile_topology)
+from smoothmesh_torch.tracing import Trace
 
 
 def cell_centroids_rough(mesh: PolyMesh) -> np.ndarray:
@@ -233,13 +233,13 @@ class ShardedMesh:
 
 def build_shards(mesh: PolyMesh, n_shards: int,
                  cell_shard: Optional[np.ndarray] = None,
-                 times: Optional[dict] = None) -> ShardedMesh:
+                 trace: Optional[Trace] = None) -> ShardedMesh:
     """The disjoint shards of ``mesh`` (the JAX package's
     ``build_shards``, the same arrays): each shard's cells as a local
     mesh in the global point order, compiled (native), with
     ``is_internal_point`` from the global mesh, and the shared-point
-    routing.  ``times``: a dict that receives the seconds of the
-    topology compiles (``"compiles"``)."""
+    routing.  ``trace``: receives the topology compiles as
+    ``setup.compiles`` spans."""
     if cell_shard is None:
         cell_shard = partition_cells(mesh, n_shards)
     global_internal = ~boundary_point_mask(mesh)
@@ -248,14 +248,13 @@ def build_shards(mesh: PolyMesh, n_shards: int,
     topos: List[MeshTopology] = []
     l2g: List[np.ndarray] = []
     min_edge, max_edge = np.inf, 0.0
-    t_compile = 0.0
+    trace = Trace() if trace is None else trace
     for d in range(n_shards):
         lmesh, gids, _cells = extract_submesh(mesh, cell_shard == d,
                                               face_patch)
         lmesh.validate()
-        t0 = time.perf_counter()
-        topo = compile_topology(lmesh)
-        t_compile += time.perf_counter() - t0
+        with trace.span("setup.compiles"):
+            topo = compile_topology(lmesh)
         topo.is_internal_point = global_internal[gids]
         elen = np.linalg.norm(lmesh.points[topo.edges[:, 0]]
                               - lmesh.points[topo.edges[:, 1]], axis=1)
@@ -263,8 +262,6 @@ def build_shards(mesh: PolyMesh, n_shards: int,
         max_edge = max(max_edge, float(elen.max()))
         topos.append(topo)
         l2g.append(gids)
-    if times is not None:
-        times["compiles"] = t_compile
 
     count = np.zeros(mesh.n_points, dtype=np.int64)
     for gids in l2g:

@@ -23,6 +23,7 @@ from smoothmesh_torch.parallel.partition import ShardedMesh, build_shards
 from smoothmesh_torch.parallel.sync import DistPointSync, UnionPointSync
 from smoothmesh_torch.parallel.union import UnionSmoother
 from smoothmesh_torch.quality import quality_report, quality_td_keys
+from smoothmesh_torch.tracing import Trace
 
 
 class ShardedSmoother(UnionSmoother):
@@ -48,8 +49,8 @@ class ShardedSmoother(UnionSmoother):
 
     @staticmethod
     def _shards_of(mesh: PolyMesh, n_shards: int,
-                   times: dict) -> ShardedMesh:
-        return build_shards(mesh, n_shards, times=times)
+                   trace: Trace) -> ShardedMesh:
+        return build_shards(mesh, n_shards, trace=trace)
 
     def _set_exchange(self) -> None:
         un, idx = self.union, self._index

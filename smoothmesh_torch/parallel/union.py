@@ -28,7 +28,6 @@ global mesh.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,6 +44,7 @@ from smoothmesh_torch.params import SmoothingParams
 from smoothmesh_torch.parallel import scatter
 from smoothmesh_torch.parallel.sync import ProcessGroup
 from smoothmesh_torch.quality import MeshStats
+from smoothmesh_torch.tracing import Trace
 
 # ---------------------------------------------------------------------------
 # Topology padding to common shapes
@@ -325,8 +325,14 @@ class UnionSmoother(Smoother):
     JAX classes' (D, Npad, 3) blocks and :meth:`denormalize` the global
     mesh in its own point order, each point from its owner's row.
     ``setup_times``: the seconds of the shard build (of which the
-    topology compiles), the union and the upload.
+    topology compiles), the union and the upload, read from
+    ``trace``'s set-up spans (:data:`SETUP_TIMES`).
     """
+
+    #: ``setup_times``' keys and the spans they read
+    SETUP_TIMES = (("compiles", "setup.compiles"),
+                   ("shard build", "setup.shard_build"),
+                   ("union", "setup.union"), ("upload", "setup.upload"))
 
     def __new__(cls, *args, devices=None, **kw):
         if devices is not None and len(devices) > 1:
@@ -339,6 +345,7 @@ class UnionSmoother(Smoother):
                  n_shards: Optional[int] = None, dtype=None,
                  normalize: bool = True, device=None,
                  distributed: bool = False, *, devices=None, group=None):
+        self.trace = Trace()
         if devices is not None:
             if device is not None or distributed or group is not None \
                     or n_shards not in (None, 1):
@@ -369,27 +376,31 @@ class UnionSmoother(Smoother):
             scale = 1.0 / max(self.stats.min_edge_length, 1e-300)
         else:
             center, scale = np.zeros(3), 1.0
-        self._start((self.union.points - center) * scale,
-                    params.resolve(self.stats.min_edge_length), center,
-                    scale, device, dtype)
-        if self._will_layer:
-            self._setup_maps()
-            sh = self.shards
-            self._set_layer(self._once("layer blocks", lambda: (
-                scatter.scatter_layer_maps(
-                    self.layer_maps, sh.l2g,
-                    scatter.g2l_maps(sh.l2g, mesh.n_points),
-                    sh.n_padded_points)[0])))
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        self.setup_times["upload"] += time.perf_counter() - self._t_upload
+        with self.trace.span("setup.upload"):
+            self._start((self.union.points - center) * scale,
+                        params.resolve(self.stats.min_edge_length), center,
+                        scale, device, dtype)
+            if self._will_layer:
+                self._setup_maps()
+                sh = self.shards
+                self._set_layer(self._once("layer blocks", lambda: (
+                    scatter.scatter_layer_maps(
+                        self.layer_maps, sh.l2g,
+                        scatter.g2l_maps(sh.l2g, mesh.n_points),
+                        sh.n_padded_points)[0])))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+
+    @property
+    def setup_times(self) -> dict:
+        return {k: self.trace.total(name) for k, name in self.SETUP_TIMES}
 
     @staticmethod
-    def _shards_of(mesh: PolyMesh, n_shards: int, times: dict):
+    def _shards_of(mesh: PolyMesh, n_shards: int, trace: Trace):
         """The decomposition's host build of ``mesh`` into ``n_shards``
         shards (with ``n_local``, ``topos``, ``l2g``, ``owned``, the
         shared-point tables, the owner maps and the edge-length
-        extremes); ``times`` receives the seconds of its compiles."""
+        extremes); ``trace`` receives its compiles' spans."""
         raise NotImplementedError
 
     def _set_exchange(self) -> None:
@@ -404,7 +415,6 @@ class UnionSmoother(Smoother):
 
     def _build(self, mesh: PolyMesh, n_shards: Optional[int]) -> None:
         """The host part: the shards, their union and the mesh stats."""
-        times = {}
         if self.group is not None:
             rank, world = self.group.rank, self.group.world
             if n_shards not in (None, world):
@@ -414,18 +424,18 @@ class UnionSmoother(Smoother):
         else:
             n_shards = 1 if n_shards is None else int(n_shards)
             which = None
-        t0 = time.perf_counter()
 
         def build():
-            built = {}
+            built = Trace()
             return self._shards_of(mesh, n_shards, built), built
 
-        sh, built = self._once("shards", build)
-        times.update(built)
-        times["shard build"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self.union = union_topology(sh, which)
-        times["union"] = time.perf_counter() - t0
+        # a card group's members wait for the one that builds, and each
+        # takes its compiles' spans
+        with self.trace.span("setup.shard_build"):
+            sh, built = self._once("shards", build)
+        self.trace.merge(built, parent="setup.shard_build")
+        with self.trace.span("setup.union"):
+            self.union = union_topology(sh, which)
         mins, maxs = mesh.points.min(0), mesh.points.max(0)
         self.stats = MeshStats(
             sh.min_edge_length, sh.max_edge_length,
@@ -435,14 +445,11 @@ class UnionSmoother(Smoother):
         self.mesh_internal = None
         self.shards = sh
         self._global_topo = None
-        self.setup_times = times
 
     def _start(self, points, params, center, scale, device,
                dtype) -> None:
         """The device state of the union from its internal points and
         the resolved parameters, with the exchange."""
-        self._t_upload = time.perf_counter()
-        self.setup_times["upload"] = 0.0
         self._setup(self.union.topo, points, params, center, scale, device,
                     dtype, orders=None)
         self._set_exchange()
@@ -500,22 +507,25 @@ class UnionSmoother(Smoother):
         global mesh (host), restricted to the shards."""
         if self.layer_maps is not None:
             return
-        self._stage_normals_tables()
+        with self.trace.span("setup.layer_maps"):
+            self._stage_normals_tables()
 
-        def host():
-            topo = self._global_setup()
-            bn, sharp = lay.boundary_point_normals_np(self.mesh.points, topo)
-            maps = lay.build_layer_maps(
-                topo, bn, sharp,
-                topo.patch_ids_matching(self.params.layer_patches),
-                topo.patch_ids_matching(self.params.smoothing_patches),
-                self.params.max_layers)
-            return maps, scatter.restrict_vectors(
-                maps.normals_init, self.shards.l2g,
-                self.shards.n_padded_points)
+            def host():
+                topo = self._global_setup()
+                bn, sharp = lay.boundary_point_normals_np(self.mesh.points,
+                                                          topo)
+                maps = lay.build_layer_maps(
+                    topo, bn, sharp,
+                    topo.patch_ids_matching(self.params.layer_patches),
+                    topo.patch_ids_matching(self.params.smoothing_patches),
+                    self.params.max_layers)
+                return maps, scatter.restrict_vectors(
+                    maps.normals_init, self.shards.l2g,
+                    self.shards.n_padded_points)
 
-        self.layer_maps, normals = self._once("layer maps", host)
-        self.normals = self._tensor(self.union.rows(normals), self.dtype)
+            self.layer_maps, normals = self._once("layer maps", host)
+            self.normals = self._tensor(self.union.rows(normals),
+                                        self.dtype)
 
     def enable_boundary_smoothing(
         self, surf_vertices, surf_tris,
@@ -553,10 +563,12 @@ class UnionSmoother(Smoother):
                 setup, self.layer_maps, sh.l2g, g2ls, sh.topos,
                 sh.n_padded_points, self.transform, self._scale)
 
-        setup, (blocks, rep, scalars) = self._once("boundary", host)
+        with self.trace.span("setup.boundary.classify"):
+            setup, (blocks, rep, scalars) = self._once("boundary", host)
         self.boundary_setup = setup
         self._global_topo = None
-        self._set_boundary(blocks, rep, scalars["distance_tolerance"])
+        with self.trace.span("setup.boundary.tables"):
+            self._set_boundary(blocks, rep, scalars["distance_tolerance"])
         return setup
 
     # -- host-side assembly ---------------------------------------------------

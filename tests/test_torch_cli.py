@@ -8,7 +8,8 @@ its border ring as ``initEdges.obj`` and the shrunk ring as
 - a run with ``-device cpu -dtype float64 -centroidalIters 5
   -writeInterval 2 -checkMesh -profileDir DIR`` exits 0, enables
   boundary smoothing, writes time directories 2, 4 and 5 with the
-  classification checkpoints and a profiler trace of the loop, prints
+  classification checkpoints and a profiler trace of the set-up and
+  the loop (the smoother's ``smoothmesh::`` spans in it), prints
   the quality report, and writes the points of the
   port's ``Smoother.run`` with the same parameters (to 1e-12; written
   in binary, so no digits are lost);
@@ -27,6 +28,7 @@ its border ring as ``initEdges.obj`` and the shrunk ring as
   anything reaches the card.
 """
 
+import json
 import os
 
 import numpy as np
@@ -110,6 +112,19 @@ def test_cli_runs_writes_and_reports(run):
         assert line in out
     traces = os.listdir(os.path.join(os.path.dirname(root), "trace"))
     assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
+
+
+def test_cli_profile_holds_the_smoother_spans(run):
+    root, rc, _ = run
+    assert rc == 0
+    where = os.path.join(os.path.dirname(root), "trace")
+    with open(os.path.join(where, os.listdir(where)[0])) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"smoothmesh::" + n for n in (
+        "setup.reorder", "setup.topology", "setup.upload",
+        "setup.boundary.classify", "setup.capture", "batch.reset",
+        "batch.replay", "batch.read")} <= names
 
 
 def test_cli_points_equal_smoother_run(run):
