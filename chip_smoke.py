@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (smoothmesh_torch) on one CUDA card.
 
 Phases, each fatal on failure:
-  1. the card's name and power limit; build the CUDA kernels (K1-K8,
+  1. the card's name and power limit; build the CUDA kernels (K1-K9,
      one nvcc per source, all at once) and the native topology
      compiler (g++); a second run in the same checkout compiles none;
      print the build time;
@@ -44,7 +44,7 @@ Phases, each fatal on failure:
      equal; the batched call reads the host exactly twice (counted
      under torch.cuda.set_sync_debug_mode("warn")) and runs its replays
      under "error"; in both runs every one of K1-K6 launched once per
-     iteration (through the replays in the batched one) and K7, K8
+     iteration (through the replays in the batched one) and K7-K9
      never; finite residuals, 0 <= nFrozen <= N and positive cell
      volumes at the end; the ms/iteration of both, the capture time and
      the peak device memory;
@@ -60,12 +60,15 @@ Phases, each fatal on failure:
      triangles so that t = +-0), with its launch geometry, registers
      and shared memory; K3 with boundary points moving (and the points
      that ran its share-a-cell test) and K4 with the boundary pass's
-     incoming freeze mask (bit for bit) against theirs, and the times of
-     the plain-PyTorch boundary stages; then
+     incoming freeze mask (bit for bit) against theirs, K9 (the point
+     normals) bit for bit against its plain version with its time, its
+     bytes bound, registers and launch, and the times of the
+     plain-PyTorch boundary stages beside K9's; then
      Smoother.steps(32) one iteration a dispatch and in batches of 16,
-     compared as in phase 4, with every kernel but K7 (K8 too) launched
-     once per iteration, the top points' largest distance to the dome
-     falling, and positive cell volumes;
+     compared as in phase 4, with every kernel but K7 (K8 and K9 too)
+     launched once per iteration, the top points' largest distance to
+     the dome falling, positive cell volumes, and K9 bit for bit
+     against its plain version on the state the batched steps left;
   6. a 32^3 mesh of the same recipe for 8 iterations through the kernels
      and through the plain versions on the card, with the face angle
      off, at the default band, at 60/120 and at 80/100 (which freezes
@@ -75,8 +78,8 @@ Phases, each fatal on failure:
      boundary configuration also every residual below 1 and the points
      within 1e-3 at the end); under the four bands K4 and K5 also held
      bit for bit against their plain versions on every iteration's
-     inputs (K4 at the main and the tight thresholds), and K1, K2, K4
-     and K5 likewise in the boundary configuration; each of the five
+     inputs (K4 at the main and the tight thresholds), and K1, K2, K4,
+     K5 and K9 likewise in the boundary configuration; each of the five
      runs batched (16) and again one iteration a dispatch from the
      same start, bit-equal, with the face-angle stops of the batched
      run printed (the 60/120 and 80/100 bands take one);
@@ -98,7 +101,7 @@ Phases, each fatal on failure:
      and layers on "top", min angle 15, ray misses frozen, -checkMesh,
      binary output.  Exit code 0, boundary smoothing enabled, no
      negative volume in the report, the written time directory reads
-     back with every point, and every kernel (K1-K8) launched during
+     back with every point, and every kernel (K1-K9) launched during
      the call; the wall time split into read, set-up (native topology
      compile, upload, classification), smoothing, report and write, and
      the set-up into its parts as in phase 2;
@@ -281,6 +284,11 @@ K2_PLAIN_KEYS = ("owner", "cell_faces", "cell_faces_mask")
 #: (kThreads, kRowW in csrc/face_geometry.cu and csrc/cell_centres.cu)
 K1_THREADS = K2_THREADS = 256
 K1_ROW_W, K2_ROW_W = 4, 6
+#: K9's block (smk::kBlock in csrc/common.cuh) and its fp32 operations:
+#: ~12 a point (the sum added, its norm, three divisions) and ~12 a
+#: selected face slot (the area's norm, three divisions, three adds)
+K9_THREADS = 256
+K9_OPS = 12
 #: x of the points of K1's and K2's '/' edge case: a face or cell all of
 #: whose points have it sums to less than 2^-60, outside the range in
 #: which the kernels divide without a check
@@ -479,22 +487,49 @@ def bits_differing(got, want) -> int:
                for g, w in zip(got, want))
 
 
+def k9_bytes_ops(td, n_points: int) -> tuple:
+    """K9's work at its inputs -> (bytes, fp32 operations): every point
+    reads its previous normal and is_internal_point and writes its normal
+    and is_sharp (26 bytes); a boundary point also reads its point_faces
+    row and mask, and the faces its masked slots name their real flag
+    and, where selected, their area vector (each face counted once)."""
+    bnd = ~td["is_internal_point"]
+    rows, mask = td["point_faces"][bnd], td["point_faces_mask"][bnd]
+    named = rows[mask].long()
+    sel = named[td["face_is_real_boundary"][named]]
+    n_rows = int(bnd.sum())
+    n_bytes = (26 * n_points + 5 * n_rows * rows.shape[1]
+               + int(torch.unique(named).numel())
+               + 12 * int(torch.unique(sel).numel()))
+    return n_bytes, K9_OPS * (n_points + int(sel.numel()))
+
+
+def k9_differing(got, want) -> int:
+    """Normals (float32) whose bits differ and is_sharp flags that differ
+    between two (normals, is_sharp) pairs."""
+    return (bits_differing(got[:1], want[:1])
+            + int((got[1] != want[1]).sum()))
+
+
 def exact_stages(stats: dict):
     """The plain stages, holding K1, K2, K4 and K5 bit for bit against
     their plain versions on every iteration's inputs: K1 on the
     iteration's points, K2 on its face geometry, K4 at the iteration's
     thresholds and at TIGHT_FREEZE, K5 on the iteration's face means
-    and cell centres (also where the face angle is off).  Counts into
-    ``stats``: K1 and K2 values not bit-equal, K4 mask mismatches, K5
-    values not bit-equal, K5's max abs err, points frozen at the tight
-    thresholds."""
+    and cell centres (also where the face angle is off), K9 on the
+    iteration's normals and area vectors (where the boundary normals
+    run).  Counts into ``stats``: K1 and K2 values not bit-equal, K4 mask
+    mismatches, K5 values not bit-equal, K5's max abs err, points frozen
+    at the tight thresholds, K9 values not bit-equal and is_sharp
+    mismatches."""
     from smoothmesh_torch import geometry as geo
+    from smoothmesh_torch import layers as lay
     from smoothmesh_torch.driver import PLAIN_STAGES, Stages
     from smoothmesh_torch.ops import constraints as con
 
     seen = {}
     for k in ("k1_bits", "k2_bits", "k4_mismatches", "k4_tight_frozen",
-              "k5_bits", "calls"):
+              "k5_bits", "k9_bits", "calls"):
         stats.setdefault(k, 0)
     stats.setdefault("k5_max_abs_err", 0.0)
 
@@ -528,9 +563,15 @@ def exact_stages(stats: dict):
         stats["calls"] += 1
         return wants[0]
 
+    def point_normals(prev, areas, td, sync=None):
+        out = PLAIN_STAGES.point_normals(prev, areas, td, sync)
+        stats["k9_bits"] += k9_differing(
+            lay.accumulate_point_normals(prev, areas, td, sync), out)
+        return out
+
     return Stages(face_geometry, cell_centres_vols, PLAIN_STAGES.predictor,
                   freeze, PLAIN_STAGES.face_angles_per_point,
-                  PLAIN_STAGES.ray_cast)
+                  PLAIN_STAGES.ray_cast, point_normals)
 
 
 def k1_k2_edge_cases(pts, fp, fm, fn, fg, td, td_p) -> dict:
@@ -840,11 +881,37 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
           f"mismatches of {N}; with 1% of points more frozen on entry "
           f"({int(extra.sum())}): {mism[1]} mismatches", flush=True)
 
+    # K9 on the first iteration's inputs
+    (prev9, areas9, _, _), got9 = rec["point_normals"]
+    want9 = lay.accumulate_point_normals_plain(prev9, areas9, td)
+    k9_first = k9_differing(got9, want9)
+    require(k9_first == 0, f"K9 at {MAIN_SIDE}^3 (first iteration's "
+            f"inputs): {k9_first} values or flags differ (held bit for bit)")
+    k9_ms = device_ms(lambda: lay.accumulate_point_normals(
+        prev9, areas9, td), 20)
+    k9_work = k9_bytes_ops(td, N)
+    k9_b_ms, k9_b_by = bound(*k9_work)
+    regs9, smem9, spill9 = resources_of(kernels.POINT_NORMALS,
+                                        "point_normals_kernel")
+    k9_launch = dict(blocks=-(-N // K9_THREADS), threads=K9_THREADS,
+                     registers=regs9, static_shared_bytes=smem9,
+                     spilled_bytes=spill9)
+    print(f"K9 point_normals at {MAIN_SIDE}^3 (first iteration's inputs): "
+          f"bit-equal to the plain version ({int(want9[1].sum())} sharp, "
+          f"{int((~td['is_internal_point']).sum())} boundary points of "
+          f"{N}); kernel {k9_ms:.4f} ms, bound {k9_b_ms:.4f} ms ({k9_b_by},"
+          f" {k9_work[0] / 1e6:.1f} MB); launch {k9_launch['blocks']} "
+          f"blocks of {K9_THREADS} threads, one point a thread; {regs9} "
+          f"registers, {smem9} bytes shared, {spill9} bytes spilled on "
+          f"{smi}", flush=True)
+    del got9, want9
+
     # the boundary stages in plain PyTorch (K8 inside the projection)
     pts, fg = sb.points, rec["face_geometry"][1]
     prop = rec["predictor"][1][0]
     max_step = p.max_step_length * sb._scale
-    normals, sharp = lay.accumulate_point_normals(sb.normals, fg.areas, td)
+    normals, sharp = lay.accumulate_point_normals_plain(sb.normals,
+                                                        fg.areas, td)
 
     def blend():
         outer = lay.update_neigh_coords(pts, sb.layer["outer_map"])
@@ -873,7 +940,7 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
                                              p.rel_step_frac)
 
     stage_ms = {name: device_ms(fn, 10) for name, fn in (
-        ("normals", lambda: lay.accumulate_point_normals(
+        ("normals", lambda: lay.accumulate_point_normals_plain(
             sb.normals, fg.areas, td)),
         ("layer blend", blend), ("boundary projection", project),
         ("prismatic projection", prismatic))}
@@ -881,8 +948,10 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
           "device ms): " + ", ".join(f"{k} {v:.4f}"
                                      for k, v in stage_ms.items())
           + f"; {sum(stage_ms.values()):.4f} in all, of which K8 "
-          f"{ms:.4f}", flush=True)
+          f"{ms:.4f}; K9 {k9_ms:.4f} in place of the plain normals",
+          flush=True)
     del rec, prop, prop_l, prop_b, normals, sharp, fg, got, want
+    del prev9, areas9
 
     # the path itself
     top = rows.cpu().numpy()
@@ -913,6 +982,16 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
     _, vol = geo.cell_centres_vols(fgn, td)
     vmin = float(vol.min())
     require(vmin > 0, f"cell volume {vmin} at the end of the boundary path")
+    # K9 on the state the batched iterations left
+    after = (lay.accumulate_point_normals(sb.normals, fgn.areas, td),
+             lay.accumulate_point_normals_plain(sb.normals, fgn.areas, td))
+    k9_after = k9_differing(*after)
+    require(k9_after == 0, f"K9 at {MAIN_SIDE}^3 after {MAIN_ITERS} "
+            f"batched iterations: {k9_after} values or flags differ")
+    print(f"K9 at {MAIN_SIDE}^3 after {MAIN_ITERS} batched iterations: "
+          f"bit-equal to the plain version ({int(after[1][1].sum())} sharp)",
+          flush=True)
+    del after
     walls = [r.wall_ms for r in steps]
     iter_ms = float(np.mean(walls))
     print(f"boundary path (layers + boundary smoothing), batched: "
@@ -934,7 +1013,15 @@ def boundary_path(topo, mesh_int, smi: str) -> dict:
         bytes=work[0], ops=work[1], rays_differing=n_differ,
         random_soup_rays_differing=r_differ, edge_cases=edges,
         launch=launch), launches=launches, k3_share_test_points=n_share,
-        ms_one=run["ms_one"], ms_batched=run["ms_batched"])
+        ms_one=run["ms_one"], ms_batched=run["ms_batched"],
+        k9_record=dict(
+            name=kernels.POINT_NORMALS.name, route="cuda",
+            source=f"smoothmesh_torch/csrc/{kernels.POINT_NORMALS.source}",
+            replaces=kernels.POINT_NORMALS.replaces, max_abs_err=0.0,
+            ms=k9_ms, plain_ms=stage_ms["normals"], bound_ms=k9_b_ms,
+            bound_by=k9_b_by, library_ms=None, bytes=k9_work[0],
+            ops=k9_work[1], values_differing_first=k9_first,
+            values_differing_after=k9_after, launch=k9_launch))
 
 def gather_phase(td, cell_ctrs, face_geo, smi: str) -> dict:
     """Phase 3b: K7 against its plain version at the two 128^3 shapes ->
@@ -1544,7 +1631,8 @@ def halo_phase(mesh, mesh_int, topo, orders, smi: str) -> dict:
           f"{nbytes(*hs.td.values()) / 1e9:.3f} GB)", flush=True)
     run = batched_against_one_by_one(
         hs, MAIN_ITERS, f"halo {MAIN_SIDE}^3, {HALO_SHARDS} shards", smi,
-        {k: (0 if k in (kernels.RAYCAST, kernels.TABLE_GATHER)
+        {k: (0 if k in (kernels.RAYCAST, kernels.TABLE_GATHER,
+                        kernels.POINT_NORMALS)
              else MAIN_ITERS) for k in kernels.ALL})
     out.update(ms_batched=run["ms_batched"], ms_one=run["ms_one"],
                peak_gb=run["peak_gb"], capture_s=run["capture_s"])
@@ -1872,7 +1960,8 @@ def sharded_phase(mesh, mesh_int, topo, orders, smi: str,
     ss._iteration = 0
     run = batched_against_one_by_one(
         ss, MAIN_ITERS, f"sharded {MAIN_SIDE}^3, {SHARDED_SHARDS} shards",
-        smi, {k: (0 if k in (kernels.RAYCAST, kernels.TABLE_GATHER)
+        smi, {k: (0 if k in (kernels.RAYCAST, kernels.TABLE_GATHER,
+                             kernels.POINT_NORMALS)
                   else MAIN_ITERS) for k in kernels.ALL})
     require(holders_identical(ss), f"sharded {MAIN_SIDE}^3: the holders "
             "differ after steps(32)")
@@ -2372,7 +2461,8 @@ def float64_phase(mesh_int, topo, steps32, smi: str) -> dict:
     kernels.reset_launches()
     s32.step()
     launched = {k: k.launches for k in kernels.ALL}
-    require(all(n == (0 if k in (kernels.TABLE_GATHER, kernels.RAYCAST)
+    require(all(n == (0 if k in (kernels.TABLE_GATHER, kernels.RAYCAST,
+                                 kernels.POINT_NORMALS)
                       else 1) for k, n in launched.items()),
             f"a float32 step() launched {launched}")
     del s32
@@ -2384,7 +2474,7 @@ def float64_phase(mesh_int, topo, steps32, smi: str) -> dict:
         refused = None
     require(refused is not None, "a float16 smoother on cuda was accepted")
     print(f"float32 step() after the float64 runs: K1-K6 launched once "
-          f"each, K7 and K8 none; float16 on cuda: TypeError({refused!r})",
+          f"each, K7, K8 and K9 none; float16 on cuda: TypeError({refused!r})",
           flush=True)
     out["decompositions_float32"] = decompositions(torch.float32)
     return out
@@ -3307,7 +3397,8 @@ def main() -> int:
     # -- 4. the default path through the user's entry point ------------------
     main = batched_against_one_by_one(
         sm, MAIN_ITERS, f"default path at {MAIN_SIDE}^3", smi,
-        {k: (0 if k in (kernels.RAYCAST, kernels.TABLE_GATHER)
+        {k: (0 if k in (kernels.RAYCAST, kernels.TABLE_GATHER,
+                        kernels.POINT_NORMALS)
              else MAIN_ITERS) for k in kernels.ALL})
     steps, launches, t_run = main["steps"], main["launches"], main["t_run"]
     for r in steps:
@@ -3338,6 +3429,7 @@ def main() -> int:
     # -- 5. the boundary path on the same mesh and topology -------------------
     bnd = boundary_path(topo, mesh_int, smi)
     results[kernels.RAYCAST] = bnd["record"]
+    results[kernels.POINT_NORMALS] = bnd["k9_record"]
     results[kernels.PREDICTOR]["share_test_points_boundary"] = \
         bnd["k3_share_test_points"]
 
@@ -3423,8 +3515,8 @@ def main() -> int:
             f"{moved} apart at the end (kernels vs plain)")
     require(exact["calls"] == SMALL_ITERS and exact["k1_bits"] == 0
             and exact["k2_bits"] == 0 and exact["k4_mismatches"] == 0
-            and exact["k5_bits"] == 0,
-            f"{SMALL_SIDE}^3 boundary path: K1, K2, K4 and K5 against "
+            and exact["k5_bits"] == 0 and exact["k9_bits"] == 0,
+            f"{SMALL_SIDE}^3 boundary path: K1, K2, K4, K5 and K9 against "
             f"their plain versions on each iteration's inputs: {exact}")
     print(f"{SMALL_SIDE}^3 x {SMALL_ITERS}, boundary path (layers + boundary"
           f" smoothing, max step {SMALL_BND_MAX_STEP}): kernels and plain "
@@ -3434,7 +3526,8 @@ def main() -> int:
           f"end {moved:.3g} < {BND_POINT_TOL}, normalized units); on each "
           f"iteration's inputs K1 {exact['k1_bits']}, K2 {exact['k2_bits']}"
           f" and K5 {exact['k5_bits']} values not bit-equal, K4 "
-          f"{exact['k4_mismatches']} mask mismatches", flush=True)
+          f"{exact['k4_mismatches']} mask mismatches, K9 "
+          f"{exact['k9_bits']} values or flags", flush=True)
 
     wall_clock("phase 7")
     # -- 7. the CLI at full size ------------------------------------------
@@ -3476,6 +3569,7 @@ def main() -> int:
     wall_clock("phase 8")
     # -- 8. the record ----------------------------------------------------
     main_path = {kernels.RAYCAST: bnd["launches"],
+                 kernels.POINT_NORMALS: bnd["launches"],
                  kernels.TABLE_GATHER: cli["launches"]}
     for k in results:
         results[k]["launches"] = main_path.get(k, launches)[k]

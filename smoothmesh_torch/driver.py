@@ -98,6 +98,7 @@ class Stages(NamedTuple):
     freeze_constraints: Callable
     face_angles_per_point: Callable
     ray_cast: Callable
+    point_normals: Callable
 
 
 #: The wrappers: kernels on float32 CUDA tensors, plain versions on CPU
@@ -105,14 +106,16 @@ class Stages(NamedTuple):
 KERNEL_STAGES = Stages(geo.face_centres_areas, geo.cell_centres_vols,
                        smoothing.predictor, constraints.freeze_constraints,
                        constraints.face_angles_per_point,
-                       raycast.segment_triangle_hits)
+                       raycast.segment_triangle_hits,
+                       lay.accumulate_point_normals)
 #: The plain PyTorch versions on any device (the card's reference run).
 PLAIN_STAGES = Stages(geo.face_centres_areas_plain,
                       geo.cell_centres_vols_plain,
                       smoothing.predictor_plain,
                       constraints.freeze_constraints_plain,
                       constraints.face_angles_per_point_plain,
-                      raycast.segment_triangle_hits_plain)
+                      raycast.segment_triangle_hits_plain,
+                      lay.accumulate_point_normals_plain)
 
 #: The device-topology tables one iteration of the default configuration
 #: reads (the face-angle fixed point reads point_edges_side folded into
@@ -231,8 +234,8 @@ def iteration_body(points, td, params: SmoothingParams, scale: float,
     if layer is not None or bnd is not None:
         mark("iter.geometry")
         # stateful normals (reference :2266), from K1's area vectors
-        normals, is_sharp = lay.accumulate_point_normals(normals, fg.areas,
-                                                         td, sync)
+        normals, is_sharp = stages.point_normals(normals, fg.areas, td,
+                                                 sync)
         mark("iter.normals")
     cell_ctrs, _ = stages.cell_centres_vols(fg, td)
     mark("iter.geometry")

@@ -26,15 +26,15 @@ and for each member (:func:`count_as`).
 Arithmetic: ``--fmad=false`` keeps ``a*b+c`` as two rounded operations,
 as the plain PyTorch versions compute it, so the kernels agree with
 them to the last bits where the sums run in the same order; K1, K2, K4,
-K5, K6, K7 and K8 equal theirs bit for bit (the plain K1 and K2 sum
-their slots in slot order, as the kernels do).  K1-K3, K6 and K7 are
-bound by memory traffic (K7 only copies).  K4 and K5 are not: the latency of their scattered
-gathers sets their pace, and before their redesign each IEEE division's
-range check and slow-path branch did too, so both now divide with the
-compiler's own fast-path sequence and check the operands once per point
-or edge (``csrc/freeze.cu``); K1 and K2 divide so too, with one check
-for each three quotients (``smk::div3``).  K8 (the ray cast) is bound by its
-operations.
+K5, K6, K7, K8 and K9 equal theirs bit for bit (the plain K1, K2 and K9
+sum their slots in slot order, as the kernels do).  K1-K3, K6, K7 and
+K9 are bound by memory traffic (K7 only copies).  K4 and K5 are not:
+the latency of their scattered gathers sets their pace, and before
+their redesign each IEEE division's range check and slow-path branch
+did too, so both now divide with the compiler's own fast-path sequence
+and check the operands once per point or edge (``csrc/freeze.cu``); K1
+and K2 divide so too, with one check for each three quotients
+(``smk::div3``).  K8 (the ray cast) is bound by its operations.
 """
 
 from __future__ import annotations
@@ -348,6 +348,11 @@ RAYCAST = Kernel(
     "K8 segment_triangle_hits", "raycast.cu", "smk_raycast",
     [P, P, P, I, I, I, I, I, F, F, F, F, P, P],
     "smoothmesh_tpu/ops/raycast.py:102")
+#: no TPU kernel: the JAX package computes the normals in XLA
+POINT_NORMALS = Kernel(
+    "K9 point_normals", "point_normals.cu", "smk_point_normals",
+    [P, P, P, P, P, P, I, I, P, P],
+    "smoothmesh_tpu/layers.py:216")
 
 ALL = (FACE_GEOMETRY, CELL_CENTRES, PREDICTOR, FREEZE, FACE_ANGLES,
-       POINT_FACE_ANGLES, TABLE_GATHER, RAYCAST)
+       POINT_FACE_ANGLES, TABLE_GATHER, RAYCAST, POINT_NORMALS)

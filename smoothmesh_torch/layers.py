@@ -13,7 +13,8 @@ Host set-up (numpy, once; a copy of ``smoothmesh_tpu.layers``):
     multiply-connected invalidation and normal propagation along unique
     prismatic edges
 
-Per iteration (plain PyTorch, as the JAX package's are plain XLA):
+Per iteration (plain PyTorch, as the JAX package's are plain XLA; on
+the card the normals run as the CUDA kernel K9, ``csrc/point_normals.cu``):
 
   - stateful boundary point normals (``calculateBoundaryPointNormals``
     oBB.C:141-233: the reference accumulates into the previous,
@@ -31,8 +32,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from smoothmesh_torch import kernels
 from smoothmesh_torch.boundary import classifying_patch
-from smoothmesh_torch.geometry import dot3, norm3
+from smoothmesh_torch.geometry import dot3, norm3, slot_sum
 from smoothmesh_torch.mesh.topology import MeshTopology
 
 UNDEF = -1
@@ -226,12 +228,48 @@ def accumulate_point_normals(prev_normals, face_areas, td, sync=None):
     output, so there is no second face pass).  ``sync``: the halo
     exchange (``parallel.sync``) or None; the summed face normals and
     counts of a shared point are then its owner's.
+
+    K9 on float32 CUDA tensors without ``sync`` (bit-equal to
+    :func:`accumulate_point_normals_plain`); the plain version on the
+    CPU, in float64 and with ``sync``, whose exchange comes between the
+    sums and the normalization.
     """
+    dev = prev_normals.device
+    if sync is not None or not kernels.takes_kernel(
+            dev, prev_normals.dtype, "accumulate_point_normals"):
+        return accumulate_point_normals_plain(prev_normals, face_areas, td,
+                                              sync)
+    n, n_faces = prev_normals.shape[0], face_areas.shape[0]
+    pf, pfm = td["point_faces"], td["point_faces_mask"]
+    real, internal = td["face_is_real_boundary"], td["is_internal_point"]
+    wf = pf.shape[1]
+    kernels.check(prev_normals, "prev_normals", torch.float32, (n, 3), dev)
+    kernels.check(face_areas, "face_areas", torch.float32, (n_faces, 3),
+                  dev)
+    kernels.check(pf, "point_faces", torch.int32, (n, wf), dev)
+    kernels.check(pfm, "point_faces_mask", torch.bool, (n, wf), dev)
+    kernels.check(real, "face_is_real_boundary", torch.bool, (n_faces,),
+                  dev)
+    kernels.check(internal, "is_internal_point", torch.bool, (n,), dev)
+    normals = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    is_sharp = torch.empty((n,), dtype=torch.bool, device=dev)
+    kernels.POINT_NORMALS.launch(
+        prev_normals.data_ptr(), face_areas.data_ptr(), pf.data_ptr(),
+        pfm.data_ptr(), real.data_ptr(), internal.data_ptr(), n, wf,
+        normals.data_ptr(), is_sharp.data_ptr(), device=normals.device)
+    return normals, is_sharp
+
+
+def accumulate_point_normals_plain(prev_normals, face_areas, td,
+                                   sync=None):
+    """:func:`accumulate_point_normals` in plain PyTorch, the faces of a
+    point summed in slot order from +0 (K9's order; an unselected slot
+    adds +0)."""
     dtype = prev_normals.dtype
     unit = face_areas / norm3(face_areas).clamp_min(1e-30)[:, None]
     pf = td["point_faces"].long()
     sel = td["point_faces_mask"] & td["face_is_real_boundary"][pf]
-    add = -(unit[pf] * sel[..., None].to(dtype)).sum(1)
+    add = -slot_sum(torch.where(sel[..., None], unit[pf], 0.0))
     n_faces = sel.sum(1)
     if sync is not None:
         add = sync.sum(add)

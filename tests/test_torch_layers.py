@@ -3,6 +3,9 @@ boundary point normals against the JAX package's, on the meshes of the
 testcases tc5 (boundary smoothing + layers) and tc7 (boundary
 smoothing): the host builders array-equal on the same topology, the
 per-iteration functions to 1e-12 in float64 on inputs made from a seed.
+Besides: the plain normals bit for bit against a transliteration of the
+CUDA kernel K9's loop, and the property K9's skip rests on (no internal
+point has a real-boundary face).
 """
 
 import dataclasses
@@ -24,6 +27,7 @@ from smoothmesh_torch import geometry as geo
 from smoothmesh_torch import layers as lay
 from smoothmesh_torch import testcases as ttc
 from smoothmesh_torch.device import to_device
+from smoothmesh_torch.mesh import blockmesh as tbm
 from smoothmesh_torch.mesh.topology import compile_topology
 
 torch.set_num_threads(1)
@@ -113,6 +117,118 @@ def test_accumulate_point_normals_matches(name):
                                    atol=TOL)
         np.testing.assert_array_equal(got_sharp.numpy(),
                                       np.asarray(want_sharp))
+
+
+def _small_hex():
+    """(device topology, points) of a perturbed 5x4x3 hex."""
+    mesh = tbm.perturb(tbm.hex_block(n=(5, 4, 3)), 0.05, seed=3)
+    return to_device(compile_topology(mesh), "cpu"), mesh.points
+
+
+def _k9_loop(prev, areas, td):
+    """K9's loop (``csrc/point_normals.cu``) transliterated point by
+    point in float32 scalars -> (normals, is_sharp, the face sums (N,
+    3), the selected faces' counts).  The square root is the device's
+    own, as K9's ``sqrtf`` is the card's: torch's float32 ``sqrt`` on
+    the CPU is not always the correctly rounded one that numpy's is."""
+    f32 = np.float32
+
+    def sqrt(x):
+        return torch.sqrt(torch.tensor(x)).numpy()[()]
+
+    pf, pfm = td["point_faces"].numpy(), td["point_faces_mask"].numpy()
+    real = td["face_is_real_boundary"].numpy()
+    internal = td["is_internal_point"].numpy()
+    a, prev = areas.numpy(), prev.numpy()
+    tiny = f32(1e-30)
+    out, sums = np.empty_like(prev), np.zeros_like(prev)
+    sharp = np.zeros(len(prev), dtype=bool)
+    counts = np.zeros(len(prev), dtype=np.int64)
+    for i in range(len(prev)):
+        s = [f32(0.0)] * 3
+        if not internal[i]:
+            for w in range(pf.shape[1]):
+                if not pfm[i, w] or not real[pf[i, w]]:
+                    continue
+                x, y, z = a[pf[i, w]]
+                d = max(sqrt(x * x + y * y + z * z), tiny)
+                s = [s[0] + x / d, s[1] + y / d, s[2] + z / d]
+                counts[i] += 1
+        sums[i] = s
+        v = [prev[i, k] + -s[k] for k in range(3)]
+        mag = sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+        sharp[i] = counts[i] >= 1 and mag < f32(0.1)
+        if sharp[i]:
+            v = [f32(0.0)] * 3
+        elif mag > 0:
+            d = max(mag, tiny)
+            v = [c / d for c in v]
+        out[i] = v
+    return out, sharp, sums, counts
+
+
+@pytest.mark.parametrize("thinned", [False, True])
+@pytest.mark.parametrize("name", ["hex", "tc5"])
+def test_plain_normals_equal_k9_loop(name, thinned):
+    """The slot-order plain normals bit for bit against K9's loop, in
+    float32, over two accumulations from a previous field with zero
+    vectors and points that turn sharp, on the mesh's tables;
+    ``thinned``: a third of the real-boundary faces taken off, so that
+    selected and unselected slots mix in a row."""
+    if name == "hex":
+        td, pts = _small_hex()
+    else:
+        _, _, _, td, pts, _ = _case(name)
+    td = dict(td)
+    rng = np.random.default_rng(7)
+    if thinned:
+        keep = torch.tensor(rng.random(len(td["face_is_real_boundary"]))
+                            > 1 / 3)
+        td["face_is_real_boundary"] = td["face_is_real_boundary"] & keep
+    # area vectors of random directions and sizes (some zero), so that
+    # the order of a point's sum shows in its bits
+    n_faces = len(td["face_is_real_boundary"])
+    areas = torch.tensor(rng.normal(size=(n_faces, 3))
+                         * 10.0 ** rng.uniform(-3, 3, (n_faces, 1)),
+                         dtype=torch.float32)
+    areas[::11] = 0.0
+    prev = torch.tensor(rng.normal(size=pts.shape), dtype=torch.float32)
+    prev[::5] = 0.0
+    # boundary points whose previous normal is their face sum (which
+    # cancels it to 0: they turn sharp) or zero
+    _, _, sums, counts = _k9_loop(torch.zeros_like(prev), areas, td)
+    with_faces = np.flatnonzero(counts > 0)
+    assert len(with_faces) > 10
+    prev[with_faces[::7]] = torch.tensor(sums[with_faces[::7]])
+    prev[with_faces[3::7]] = 0.0
+    for it in range(2):
+        got, got_sharp = lay.accumulate_point_normals_plain(prev, areas, td)
+        want, want_sharp, _, _ = _k9_loop(prev, areas, td)
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      want.view(np.int32))
+        np.testing.assert_array_equal(got_sharp.numpy(), want_sharp)
+        if it == 0:
+            assert want_sharp[with_faces[::7]].all()
+        prev = got
+    # the entry point takes the plain version on the CPU
+    for a, b in zip(lay.accumulate_point_normals(prev, areas, td),
+                    lay.accumulate_point_normals_plain(prev, areas, td)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["hex", *ttc.ALL])
+def test_internal_points_have_no_real_boundary_face(name):
+    """K9 skips the face loop of every point with is_internal_point:
+    none of them has a real-boundary face in its point_faces row."""
+    if name == "hex":
+        td, _ = _small_hex()
+    else:
+        td = to_device(compile_topology(ttc.ALL[name]().mesh), "cpu")
+    sel = td["point_faces_mask"] & td["face_is_real_boundary"][
+        td["point_faces"].long()]
+    internal = td["is_internal_point"]
+    assert not bool((sel & internal[:, None]).any())
+    assert bool(sel.any()) and bool((~internal).any())
 
 
 @pytest.mark.parametrize("name", ["tc5"])

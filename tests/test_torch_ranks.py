@@ -19,8 +19,9 @@ import torch.distributed as dist
 
 from smoothmesh_torch import geometry as geo
 from smoothmesh_torch import kernels
+from smoothmesh_torch import layers as lay
 from smoothmesh_torch.device import to_device
-from smoothmesh_torch.driver import CUDA_TD_KEYS
+from smoothmesh_torch.driver import CUDA_TD_KEYS, NORMALS_TD_KEYS
 from smoothmesh_torch.mesh.blockmesh import hex_block, perturb
 from smoothmesh_torch.mesh.topology import compile_topology
 from smoothmesh_torch.ops import constraints as con
@@ -177,7 +178,7 @@ def _wrapper_inputs():
     """A 3^3 hex's float32 inputs on the CPU, in the kernels' tables."""
     mesh = perturb(hex_block(n=(3, 3, 3)), amplitude=0.05, seed=1)
     topo = compile_topology(mesh)
-    td = to_device(topo, "cpu", CUDA_TD_KEYS)
+    td = to_device(topo, "cpu", CUDA_TD_KEYS | NORMALS_TD_KEYS)
     pts = torch.tensor(mesh.points, dtype=torch.float32)
     fg = geo.face_centres_areas_plain(pts, td["face_points"],
                                       td["face_mask"], td["face_npoints"])
@@ -197,6 +198,7 @@ def _wrapper_inputs():
         "K7": lambda: gather.table_gather(cc, td["point_cells"],
                                           td["point_cells_mask"]),
         "K8": lambda: raycast.segment_triangle_hits(pts, pts, 1.0, tri),
+        "K9": lambda: lay.accumulate_point_normals(pts, fg.areas, td),
     }
 
 
