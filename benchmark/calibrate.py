@@ -7,7 +7,8 @@ follows each.  With ``--control``, the control runs in the program's
 place on the same segments: the reference itself in bfloat16, the
 precision below the configuration's float32.  Prints one JSON line a
 seed: ``program`` is the sound reading of each number, ``control``
-the control's.
+the control's.  ``--traffic FILE`` reads another mix file in place of
+the cell's, so that a mix's limits can be set before a cell runs it.
 
     python benchmark/calibrate.py --workload hex128.default \\
         --seeds 11 12 13 --control
@@ -58,8 +59,12 @@ def main() -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--control", action="store_true")
+    ap.add_argument("--traffic", type=Path,
+                    help="a mix file in place of the cell's")
     args = ap.parse_args()
     cell = Cell(args.workload)
+    if args.traffic is not None:
+        cell.mix = json.loads(args.traffic.read_text())
     if not torch.cuda.is_available():
         print("calibrate: no CUDA card", file=sys.stderr)
         return 2

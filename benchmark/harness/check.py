@@ -9,8 +9,10 @@ is held against theirs).  The plain reference (:mod:`reference`,
 float64) follows each segment from the program's state at its start
 for as many iterations as the program ran, with its own connectivity
 and its own parameters derived from the start mesh.  The boundary path
-is read one ``steps(1)`` at a time and held against the candidates of
-:mod:`refboundary` (:func:`compare_boundary`).
+(boundary smoothing, with or without layers) and the layer path (layers
+without boundary smoothing) are read one ``steps(1)`` at a time, with
+the normals, and held against the candidates of :mod:`refboundary`
+(:func:`compare_boundary`; the layer path's set-up has no target).
 
 A point is off where its position differs from the reference's by
 more than ``tol`` of the start mesh's minimum edge length;
@@ -94,27 +96,29 @@ def compare(mesh: dict, mix: dict, segments: list, T: dict, device,
 
 def compare_boundary(mesh: dict, config: dict, mix: dict, segments: list,
                      T: dict, device, dtype=torch.float64) -> dict:
-    """The boundary path, one iteration at a time from the program's
-    points and normals (``Program.single_steps``): a point is off where
-    its position after the iteration is farther than ``tol`` from each
-    of the reference's candidates (:mod:`refboundary`); ``normals_gap``
-    is the widest gap between the program's normals and the
-    reference's, after each iteration and at the job's start (the
+    """The boundary or the layer path, one iteration at a time from the
+    program's points and normals (``Program.single_steps``): a point is
+    off where its position after the iteration is farther than ``tol``
+    from each of the reference's candidates (:mod:`refboundary`);
+    ``normals_gap`` is the widest gap between the program's normals and
+    the reference's, after each iteration and at the job's start (the
     normals the set-up carried inward).  ``surface_points_off_ppm`` and
     ``layer_points_off_ppm`` count the points off among the points the
     boundary path moves alone: those on a smoothing patch (the ray
     cast's and the projections') and the internal points the layer
-    blend moves, per million of each set."""
+    blend moves, per million of each set (the layer path has no
+    smoothing patch)."""
     tol = float(mix["check"]["tol"])
     x_start = torch.as_tensor(mesh["points"], dtype=torch.float64,
                               device=device)
     h = reference.min_edge_length(x_start, T)
     p = reference.resolve(mix["params"], h)
-    B = refboundary.setup(mesh, T, p, inputs.dome(**config["target"]["dome"]),
-                          device)
+    B = refboundary.setup(mesh, T, p, inputs.target(config, mix), device)
     start = segments[0]["steps"][0]["normals"]
     n_gap = float(np.abs(start - B["normals_init"].cpu().numpy()).max())
-    sets = {"surface": B["smoothing"], "layer": B["layer"]}
+    sets = {"layer": B["layer"]}
+    if B["path"] == "boundary":
+        sets = {"surface": B["smoothing"], **sets}
     worst = dict.fromkeys(["all", *sets], 0)
     detail = []
     for seg in segments:
@@ -150,7 +154,7 @@ def read_program(prog, mix: dict, n_iters: int, seed: int) -> tuple:
     iterations -> (segments, the points at the end of the last one)."""
     length = int(mix["check"]["segment"])
     starts = segment_starts(n_iters, length, seed)
-    if mix.get("boundary_smoothing"):
+    if inputs.path(mix) != "internal":
         segs = [prog.single_steps(k, min(length, n_iters - k))
                 for k in starts]
         return segs, segs[-1]["steps"][-1]["after"]
@@ -162,7 +166,7 @@ def judge(mesh: dict, config: dict, mix: dict, segments: list, T: dict,
           device, dtype=torch.float64) -> dict:
     """The comparison of the mix's path (:func:`compare` or
     :func:`compare_boundary`)."""
-    if mix.get("boundary_smoothing"):
+    if inputs.path(mix) != "internal":
         return compare_boundary(mesh, config, mix, segments, T, device,
                                 dtype)
     return compare(mesh, mix, segments, T, device, dtype)
@@ -176,15 +180,14 @@ def control_segments(mesh: dict, config: dict, mix: dict, segments: list,
                               device=device)
     p = reference.resolve(mix["params"],
                           reference.min_edge_length(x_start, T))
-    if not mix.get("boundary_smoothing"):
+    if inputs.path(mix) == "internal":
         out = []
         for seg in segments:
             after, res = follow(seg["before"], T, p, seg["ran"], dtype,
                                 device)
             out.append(dict(seg, after=after, residuals=res))
         return out
-    B = refboundary.setup(mesh, T, p, inputs.dome(**config["target"]["dome"]),
-                          device)
+    B = refboundary.setup(mesh, T, p, inputs.target(config, mix), device)
     out = []
     for seg in segments:
         steps = []

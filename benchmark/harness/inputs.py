@@ -1,9 +1,16 @@
 """The benchmark's inputs, made from a configuration, a traffic mix and
-a seed: the graded hex block, its interior perturbation and the dome
-target.  Frozen numpy copies of the recipes (blockMesh-style graded hex
-with OpenFOAM face order, uniform interior perturbation, the k x k dome
-with its border ring), independent of the program, so that a change to
-the program's own generators cannot change what is measured.
+a seed: the configuration's mesh, its interior perturbation and the
+dome target.  Frozen numpy copies of the recipes (blockMesh-style graded
+hex with OpenFOAM face order, uniform interior perturbation, the k x k
+dome with its border ring), independent of the program, so that a
+change to the program's own generators cannot change what is measured.
+
+A configuration names its mesh recipe with ``mesh``: the module
+``benchmark/recipes/<mesh>.py``, which defines ``build(config) -> mesh``
+and ``spacing(mesh) -> float``, the unit of the mix's
+``perturbation``.  Without the key the mesh is the hex block
+(:func:`hex_block`, unit :func:`min_spacing`).  Adding a recipe adds a
+file.
 
 A mesh is a dict of numpy arrays: ``points`` (N, 3) float64,
 ``face_flat``/``face_offsets`` (ragged faces), ``owner``,
@@ -171,11 +178,42 @@ def dome(amp: float, k: int, kb: int):
     return V, tris, np.concatenate(bpts), np.concatenate(bedges)
 
 
+def path(mix: dict) -> str:
+    """The mix's path through the iteration: ``boundary`` (boundary
+    smoothing), ``layers`` (layer patches, no boundary smoothing) or
+    ``internal``."""
+    if mix.get("boundary_smoothing"):
+        return "boundary"
+    if mix["params"].get("layer_patches"):
+        return "layers"
+    return "internal"
+
+
+def target(config: dict, mix: dict):
+    """The boundary path's target (the dome), or None where the mix
+    smooths no boundary."""
+    if path(mix) != "boundary":
+        return None
+    return dome(**config["target"]["dome"])
+
+
+def recipe(config: dict):
+    """The mesh recipe (module) a configuration names with ``mesh``."""
+    from harness.cells import HERE, load_module
+
+    return load_module(HERE / "recipes" / f"{config['mesh']}.py")
+
+
 def make_mesh(config: dict, mix: dict, seed: int) -> dict:
-    """The configuration's block, perturbed as the mix says from the
-    seed."""
-    side = int(config["cells_per_side"])
-    base = hex_block((side, side, side), config["grading"],
-                     config["patches"])
-    return perturb(base, float(mix["perturbation"]) * min_spacing(base),
-                   seed)
+    """The configuration's mesh, its interior perturbed as the mix says
+    from the seed."""
+    if "mesh" in config:
+        rec = recipe(config)
+        base = rec.build(config)
+        unit = rec.spacing(base)
+    else:
+        side = int(config["cells_per_side"])
+        base = hex_block((side, side, side), config["grading"],
+                         config["patches"])
+        unit = min_spacing(base)
+    return perturb(base, float(mix["perturbation"]) * unit, seed)

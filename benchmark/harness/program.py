@@ -15,6 +15,9 @@ import torch
 
 from harness import inputs
 
+#: a configuration's ``dtype``: the coordinates' type in the program
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
 
 class Program:
     """The port's smoother for one cell and seed, and its start state."""
@@ -65,13 +68,14 @@ class Program:
         native.MESHCOMPILER.load()
         self.times["build_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        self.sm = Smoother(mesh, params, device=self.device)
+        self.sm = Smoother(mesh, params, device=self.device,
+                           dtype=DTYPES[self.config["dtype"]])
         self._sync()
         self.times["smoother_init_s"] = time.perf_counter() - t0
-        if self.mix.get("boundary_smoothing"):
-            V, T, bpts, bedges = inputs.dome(**self.config["target"]["dome"])
+        target = inputs.target(self.config, self.mix)
+        if target is not None:
             t0 = time.perf_counter()
-            self.sm.enable_boundary_smoothing(V, T, bpts, bedges)
+            self.sm.enable_boundary_smoothing(*target)
             self._sync()
             self.times["boundary_setup_s"] = time.perf_counter() - t0
         self.sm.prepare_batch()

@@ -8,17 +8,21 @@ face's), the points connected to the interior, the hop counts to the
 layer and smoothing patches, the outward and inward prismatic maps
 with the start mesh's boundary normals carried inward along them, the
 corner and feature points of the edge ring with their targets and edge
-strings, and the target triangles.
+strings, and the target triangles.  Layers without boundary smoothing
+(no target) set up the layer tables alone: the hops to the layer
+patches, the outward map and the normals.
 
 The iteration calls the step limiter three times, as upstream does
 (src/smoothMesh.C:2257-2356): after the predictor, after the layer
-blend, after the boundary projection.  The first call leaves every
+blend, after the boundary projection (twice without boundary
+smoothing, which skips the projection).  The first call leaves every
 limited point's step exactly maxStepLength long, on the limiter's
 discontinuity, so at the later calls the last bits of the arithmetic
 decide between keeping the step and halving it; upstream's float64 and
 the program's float32 decide differently.  The reference follows both
 branches at each such point and returns the four candidates of each
-point; the check accepts the nearest.
+point (two without boundary smoothing); the check accepts the
+nearest.
 """
 
 from __future__ import annotations
@@ -135,11 +139,12 @@ def _closest_on_edges(q, ea, eb, strings=None, want=None):
     return proj[r, i], i, free[r, i], ndp[r, i]
 
 
-def setup(mesh: dict, T: dict, p: dict, target: tuple, device) -> dict:
+def setup(mesh: dict, T: dict, p: dict, target, device) -> dict:
     """The boundary path's tables from the inputs (upstream
-    src/smoothMesh.C:2079-2249)."""
+    src/smoothMesh.C:2079-2249); where ``target`` is None (layers
+    without boundary smoothing), the layer tables alone.  ``path``
+    records which: ``boundary`` or ``layers``."""
     dev = torch.device(device)
-    V, tris, ring_pts, ring_edges = target
     names = [name for name, _, _ in mesh["patches"]]
     n, x0 = T["n_points"], torch.as_tensor(mesh["points"], device=dev)
     internal = T["internal"]
@@ -167,14 +172,11 @@ def setup(mesh: dict, T: dict, p: dict, target: tuple, device) -> dict:
         return hit
 
     layer_ids = _matching(names, p["layer_patches"])
-    smooth_ids = _matching(names, p["smoothing_patches"])
     pp, pm = T["point_points"].clamp_min(0), T["pp_mask"]
     connected = ~internal & (pm & internal[pp]).any(1)
     hops_layer = _hops(T, on_patches(layer_ids) & connected,
                        p["max_layers"] + 1)
-    hops_smooth = _hops(T, on_patches(smooth_ids) & connected, 2)
     layer_surface = ~internal & torch.isin(cpatch, ids_t(layer_ids))
-    smoothing_surface = ~internal & torch.isin(cpatch, ids_t(smooth_ids))
 
     # the start mesh's normals, carried inward level by level along
     # the unique prismatic edges; a point claimed twice is invalid
@@ -195,6 +197,18 @@ def setup(mesh: dict, T: dict, p: dict, target: tuple, device) -> dict:
         invalid = invalid | (good & invalid[neigh]) | conflict
     normals = torch.where(invalid[:, None], 0.0, normals)
     outer = torch.where(invalid, -1, outer)
+    # the internal points the layer blend moves (a blend above 0)
+    layer = internal & (hops_layer >= 1) & (hops_layer <= p["max_layers"])
+    tables = dict(path="layers", real_face=real_face, hops_layer=hops_layer,
+                  outer=outer, normals_init=normals, connected=connected,
+                  layer=layer)
+    if target is None:
+        return tables
+
+    V, tris, ring_pts, ring_edges = target
+    smooth_ids = _matching(names, p["smoothing_patches"])
+    hops_smooth = _hops(T, on_patches(smooth_ids) & connected, 2)
+    smoothing_surface = ~internal & torch.isin(cpatch, ids_t(smooth_ids))
     high = pm & (hops_smooth[pp] == 1)
     inner = torch.where(smoothing_surface & connected & (hops_smooth == 0)
                         & (high.sum(1) == 1), _last_match(high, pp), -1)
@@ -235,16 +249,12 @@ def setup(mesh: dict, T: dict, p: dict, target: tuple, device) -> dict:
                                                          eb)[1]]
     feat_neigh = (pm & feature[:, None] & ~internal[pp] & ~feature[pp]
                   & ~corner[pp])
-    smoothing = smoothing_surface      # on a smoothing patch
-    # the internal points the layer blend moves (a blend above 0)
-    layer = internal & (hops_layer >= 1) & (hops_layer <= p["max_layers"])
     tri = torch.as_tensor(np.asarray(V)[np.asarray(tris)],
                           dtype=torch.float64, device=dev)     # (Tr, 3, 3)
-    return dict(real_face=real_face, hops_layer=hops_layer, outer=outer,
-                inner=inner, normals_init=normals, connected=connected,
-                smoothing=smoothing, layer=layer, corner=corner,
-                feature=feature, corner_target=corner_target,
-                point_string=point_string,
+    return dict(tables, path="boundary", inner=inner,
+                smoothing=smoothing_surface,    # on a smoothing patch
+                corner=corner, feature=feature,
+                corner_target=corner_target, point_string=point_string,
                 feat_rows=f_rows, feat_neigh=feat_neigh,
                 ring=(ea, eb, strings), tri=tri,
                 max_dist=tol * (1.0 / REL_TOL) ** 4)
@@ -292,14 +302,17 @@ def _limit_branches(x, prop, max_step, rel_frac):
 
 def iteration(x, normals_prev, T, B, p, dtype=torch.float64):
     """One boundary-path iteration from points ``x`` and the normals'
-    state -> (candidates (4, N, 3), reverted (N,), new normals)."""
+    state -> (candidates (4, N, 3), reverted (N,), new normals); with
+    the layer tables alone (:func:`setup` without a target), the layer
+    path's: two candidates, boundary points fixed."""
     x = x.to(dtype)
+    smoothing = B["path"] == "boundary"     # else layers alone
     fc, fa, means = ref.face_geometry(x, T)
     normals, sharp = accumulate_normals(normals_prev.to(dtype), fa, T,
                                         B["real_face"])
     cc = ref.cell_centres(fc, fa, T)
     ms, rf = p["max_step_length"], p["rel_step_frac"]
-    prop = ref.centroidal(x, cc, T, True)
+    prop = ref.centroidal(x, cc, T, smoothing)
     prop = ref.aspect_ratio_blend(x, prop, T)
     prop = ref.limit_step(x, prop, ms, rf)
 
@@ -319,6 +332,15 @@ def iteration(x, normals_prev, T, B, p, dtype=torch.float64):
     ortho = outer + length[:, None] * normals
     prop = torch.where(ok[:, None], blend[:, None] * ortho
                        + (1.0 - blend[:, None]) * prop, prop)
+    if not smoothing:
+        # the limiter's second call ends the proposal, and every
+        # boundary point stays
+        cands = _limit_branches(x, prop, ms, rf)
+        frozen = ref.freezes(x, cands[0], T, p)
+        if p["face_angle_constraint"]:
+            frozen = ref.face_angle_fixed_point(x, cands[0], cc, means, T,
+                                                p, frozen)
+        return torch.stack(cands), frozen | ~internal, normals
 
     # boundary projection (bPS.C:843-945) on each branch of the limiter;
     # the face-centroid blend of bPS.C:869-885 has the fixed fraction 0

@@ -18,6 +18,8 @@ import math
 
 import numpy as np
 
+from harness import inputs
+
 #: NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense float32 rate
 #: outside the tensor cores, at the 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
@@ -45,11 +47,9 @@ def shapes(mesh: dict, T: dict, config: dict, mix: dict) -> dict:
              CF=int(T["cf_mask"].sum()),                 # cell-face
              EC=int(T["ec_mask"].sum()),                 # edge-cell
              rays=0, tris=0)
-    if mix.get("boundary_smoothing"):
-        from harness import inputs
-
-        V, tris, _, _ = inputs.dome(**config["target"]["dome"])
-        s["tris"] = len(tris)
+    target = inputs.target(config, mix)
+    if target is not None:
+        s["tris"] = len(target[1])
         s["rays"] = smoothing_surface_interior(mesh, mix)
     return s
 

@@ -11,16 +11,24 @@ import run
 from conftest import cell_with_mix
 
 SIDE = 6
+#: (cell, traffic mix or None[, configuration]): the layer path (layers
+#: without boundary smoothing) on the block's top and on the prism
+#: mesh's hole walls
 CELLS = [("hex128.default", None), ("hex128_top.boundary", None),
-         ("hex128.default", "stress")]
+         ("hex128.default", "stress"), ("hex128_top.boundary", "layers_top"),
+         ("hex128_top.boundary", "layers_def", "prism")]
+LAYER_CELLS = [CELLS[1], CELLS[3], CELLS[4]]
 
 
 def small(cell):
-    """The cell (a name and a traffic mix or None) at SIDE cells a side,
-    with jobs of at most 48 iterations."""
+    """The cell (:data:`CELLS`) with jobs of at most 48 iterations, a
+    hex block cut to SIDE cells a side (a recipe's mesh as its test
+    configuration has it)."""
     c = cell_with_mix(*cell)
     job = dict(c.mix["job"], iterations=min(48, c.mix["job"]["iterations"]))
     c.mix = dict(c.mix, job=job)
+    if "mesh" in c.config:
+        return c, c.config
     return c, dict(c.config, cells_per_side=SIDE)
 
 
@@ -130,6 +138,37 @@ def test_boundary_path_fault_fails_its_number(where, monkeypatch):
     c, cfg = small(CELLS[1])
     result, _ = run.measure(c, 2 ** 31 + 15, 0.2, False, "cpu", cfg)
     number = result["checks"][f"{where}_points_off_ppm"]
+    assert number["value"] > number["limit"], result["checks"]
+    assert not result["correct"]
+
+
+def blend_left_out(points, prop, *a, **kw):
+    """The layer blend returns the predictor's proposal."""
+    return prop
+
+
+def blend_halved(real):
+    """The layer blend with half the blending fraction."""
+    def blend(points, prop, td, hops, normals, outer, frac, *a, **kw):
+        return real(points, prop, td, hops, normals, outer, 0.5 * frac,
+                    *a, **kw)
+    return blend
+
+
+@pytest.mark.parametrize("fault", ["left_out", "halved"])
+@pytest.mark.parametrize("cell", LAYER_CELLS, ids=str)
+def test_layer_blend_fault_fails_its_number(cell, fault, monkeypatch):
+    """The program's layer blend broken: the number over the points the
+    blend moves fails, with and without boundary smoothing."""
+    from smoothmesh_torch import layers
+
+    real = layers.blend_with_orthogonal_points
+    monkeypatch.setattr(layers, "blend_with_orthogonal_points",
+                        blend_left_out if fault == "left_out"
+                        else blend_halved(real))
+    c, cfg = small(cell)
+    result, _ = run.measure(c, 2 ** 31 + 16, 0.2, False, "cpu", cfg)
+    number = result["checks"]["layer_points_off_ppm"]
     assert number["value"] > number["limit"], result["checks"]
     assert not result["correct"]
 

@@ -8,7 +8,9 @@ import json
 import pytest
 from conftest import BENCH
 
+from harness import inputs
 from harness.cells import Cell, load_module
+from harness.program import DTYPES
 
 ROOT = BENCH.parent
 BENCH_JSON = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -24,7 +26,12 @@ def test_benchmark_json_keys():
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH_JSON["workloads"]])
 def test_cell_files_parse(cell):
     c = Cell(cell)
-    assert c.config["cells_per_side"] > 0
+    if "mesh" in c.config:
+        recipe = inputs.recipe(c.config)
+        assert callable(recipe.build) and callable(recipe.spacing)
+    else:
+        assert c.config["cells_per_side"] > 0
+    assert c.config["dtype"] in DTYPES
     for key in ("perturbation", "params", "job", "trace", "check"):
         assert key in c.mix
     assert set(c.mix["check"]["limits"]) <= {
@@ -47,6 +54,13 @@ def test_data_files_parse(path):
 def test_stage_files_load(path):
     mod = load_module(path)
     assert isinstance(mod.KERNEL, str) and callable(mod.work)
+
+
+@pytest.mark.parametrize("path", sorted((BENCH / "recipes").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_recipe_files_load(path):
+    mod = load_module(path)
+    assert callable(mod.build) and callable(mod.spacing)
 
 
 @pytest.mark.parametrize("path", sorted((BENCH / "metrics").glob("*.py")),

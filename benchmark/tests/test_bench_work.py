@@ -22,6 +22,24 @@ def test_shapes_by_hand():
                             CF=48, EC=96, rays=0, tris=0)
 
 
+def test_prism_shapes_by_hand():
+    """2 x 2 grid cells (8 triangles, 16 edges, 8 on the border) in 2
+    layers of prisms: general padded rows, faces of 3 and of 4 points
+    in rows of 4, cells of 5 faces."""
+    cfg = {"mesh": "prism_layers", "k": 3, "square": [[0.0, 1.0], [0.0, 1.0]],
+           "base_y": 0.0, "jitter": 0.0, "jitter_seed": 0,
+           "direction": [0.0, 1.0, 0.0], "thickness": 1.0, "layers": 2}
+    mesh = inputs.make_mesh(cfg, MIX, 0)
+    T = reftopo.build(mesh, "cpu")
+    assert T["face_points"].shape[1] == 4 and T["cell_faces"].shape[1] == 5
+    # faces: 8 x 2 inner quads, 8 inner triangles, 16 caps, 8 x 2 border
+    # quads; edges: 16 x 3 in the layers' planes, 9 x 2 across them; a
+    # prism: 6 points, 5 faces, 9 edges
+    assert work.shapes(mesh, T, cfg, MIX) == dict(
+        N=27, F=56, C=16, E=66, M=16 * 4 + 8 * 3 + 16 * 3 + 16 * 4,
+        PC=16 * 6, PP=2 * 66, CF=16 * 5, EC=16 * 9, rays=0, tris=0)
+
+
 def test_stage_counts_by_hand():
     w = work.stage_works(Cell.stages(), shapes())
     # every id here fits one byte
